@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's RX main path through the entry points a user calls and
+Drives the port's main paths through the entry points a user calls and
 holds each hand-written kernel against its plain PyTorch version:
 
   1. builds the kernels from ``gnuradio_wifi_imagetransfer_tpu_torch/csrc``
@@ -14,17 +14,36 @@ holds each hand-written kernel against its plain PyTorch version:
      batch (atol 2e-4 on a and p, 1e-3 on c where p > 1e-3);
   4. checks the Viterbi kernel (K2) bit-exact against its plain version on
      256 x 422 and 256 x 24 LLRs that are random, punctured and tied;
-  5. runs the flagship block: 4 frames (MCS 2, 50-byte PSDUs) made by the
+  5. checks the FIR kernel (K3) against its plain version (atol 2e-4): (2,
+     300) with 5, 48, 129 and 200 taps, real and complex; (4, 4 194 304)
+     complex with 65 taps; rows kept apart (batch isolation);
+  6. checks the polyphase-resampler kernel (K4) against its plain version
+     (atol 2e-4): ratios 1/2, 2/1, 3/4, 4/3, 5/2, real and complex, at
+     (600,) and (2, 4, 90); the full-width 3/4 front-end input (4 rows of
+     5.6 M samples); 25001/25000 on (1, 1 048 576), past the int32 index
+     range, with an analytic tone within 1e-3;
+  7. runs the flagship block: 4 frames (MCS 2, 50-byte PSDUs) made by the
      port's TX in a 32 768-sample block with seeded noise, through
      ``sync.receive`` with 8 slots on CUDA; all 4 frames must come back
      bit-exact and agree with the port's CPU path;
-  6. runs the local ``StreamExecutor`` at the bench's device_step shape
+  8. runs the local ``StreamExecutor`` at the bench's device_step shape
      (4 channels x 16 blocks x 262 144 samples, sc16 wire, 4 slots, 3
      frames per block per channel); all 192 frames must come back
-     bit-exact; prints the step rate timed with CUDA events;
-  7. prints one JSON line of kernel timings, bounds and launch counts.
+     bit-exact; prints the step rate timed with CUDA events and a profile;
+  9. calls ``ops.fir_filter``, the stand-alone FIR entry point, on the
+     4-channel stream with a 65-tap low-pass (K3);
+ 10. runs the same executor on a 4/3-rate capture of the same frames (FFT
+     oversampled) with ``FrontendConfig(resample=(3, 4))``: the general
+     front-end (K4) then the RX path; 192 of 192 frames bit-exact;
+ 11. the same on a 2x-oversampled capture skewed by +40 ppm with
+     ``FrontendConfig(resample=(1, 2), ppm=40.0)`` (decimation and clock
+     trim in torch ops); 192 of 192 frames bit-exact;
+ 12. times the resident front-end correction pass (CUDA events) for
+     decim2, ppm40 and general 3/4 at 2**22 padded outputs, left pad 256
+     (the JAX bench's shape), in input Msamples/s;
+ 13. prints one JSON line of kernel timings, bounds and launch counts.
 
-Launch counts are set to 0 just before each main-path run (5 and 6) and
+Launch counts are set to 0 just before each main-path run (7 to 11) and
 read just after; launches made to compare or time a kernel do not count.
 The last line of stdout is {"ok": true, "device": {...}}. Any failure
 exits non-zero. Without CUDA, or without the port package beside this
@@ -33,6 +52,8 @@ file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,6 +73,9 @@ TIME_BLOCKS = 16
 CHANNELS = 4
 MAX_FRAMES = 4
 FRAMES_PER_BLOCK = 3
+# the bench's front-end pass shape (bench.py: n_out_pad, left pad 256)
+FE_OUT_PAD = 1 << 22
+FIR_TAPS = 65
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -63,6 +87,8 @@ K1_OPS_PER_SAMPLE = 171
 # per frame and trellis step of the Viterbi ACS: 64 states x 2 edges x
 # (2 mul + 2 add) + 64 compare/select + 63 max + 64 subtract
 K2_OPS_PER_STEP = 64 * 2 * 4 + 64 + 63 + 64
+# a real tap on a complex sample: 2 multiplies + 2 adds
+OPS_PER_COMPLEX_TAP = 4
 
 
 def fail(msg: str) -> None:
@@ -90,6 +116,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def max_err(got, want) -> float:
+    return (got - want).abs().max().item()
+
+
 def make_stream(tx, n: int, positions, n_frames: int, rng, device):
     """One channel: n_frames port-TX bursts at positions in seeded noise."""
     frames = rng.integers(0, 256, (n_frames, PSDU_LEN), dtype=np.uint8)
@@ -99,6 +129,42 @@ def make_stream(tx, n: int, positions, n_frames: int, rng, device):
         x[pos: pos + b.size] += 0.5 * b
     x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
     return x.astype(np.complex64), frames
+
+
+def fft_oversample(x, m: int):
+    """Exact m-times oversampling along the last axis by FFT zero padding
+    (periodic), of a complex64 torch tensor on its device."""
+    import torch
+
+    n = x.shape[-1]
+    spec = torch.fft.fft(x)
+    up = torch.zeros(x.shape[:-1] + (m * n,), dtype=spec.dtype, device=x.device)
+    h = n // 2
+    up[..., :h] = spec[..., :h]
+    up[..., -h:] = spec[..., -h:]
+    return torch.fft.ifft(up) * m
+
+
+def sample_clock_offset(x: np.ndarray, ppm: float, n_taps: int = 16,
+                        chunk: int = 1 << 19) -> np.ndarray:
+    """numpy copy of the JAX package's channel/model.py sample_clock_offset
+    (a clock running (1 + ppm*1e-6) fast, y[m] = x(m (1 + ppm*1e-6)) by
+    Hann-windowed-sinc interpolation), with float64 positions, in chunks."""
+    delta = ppm * 1e-6
+    n = x.shape[-1]
+    n_out = int(n / max(1.0 + delta, 1e-9)) - n_taps
+    k = np.arange(-(n_taps // 2 - 1), n_taps // 2 + 1)
+    y = np.empty(n_out, np.complex64)
+    for lo in range(0, n_out, chunk):
+        t = np.arange(lo, min(lo + chunk, n_out)) * (1.0 + delta)
+        base = np.floor(t).astype(np.int64)
+        frac = (t - base).astype(np.float32)
+        idx = np.clip(base[:, None] + k[None, :], 0, n - 1)
+        arg = k[None, :].astype(np.float32) - frac[:, None]
+        w = np.sinc(arg) * (0.5 + 0.5 * np.cos(np.pi * arg / (n_taps // 2 + 1)))
+        w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+        y[lo: lo + t.size] = (x[idx] * w).sum(-1)
+    return y
 
 
 def main() -> None:
@@ -114,15 +180,32 @@ def main() -> None:
     check(os.path.dirname(os.path.abspath(port.__file__)) == os.path.join(HERE, PKG),
           f"{PKG} was imported from {port.__file__}, not from this checkout")
 
-    from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig
+    import scipy.signal
+
+    from gnuradio_wifi_imagetransfer_tpu_torch import ops
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig, FrontendConfig
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
     from gnuradio_wifi_imagetransfer_tpu_torch.parallel import StreamExecutor
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import (
+        HALO_LEFT,
+        corrected_resident,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel.frontend import cached_frontend
     from gnuradio_wifi_imagetransfer_tpu_torch.phy import sync, tx
 
     dev = torch.device("cuda")
-    kernels = [k1.sync_stats, k2.viterbi_decode]
+    kernels = [k1.sync_stats, k2.viterbi_decode, k34.fir_filter, k34.polyphase_resample]
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches for k in kernels}
 
     # -- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -151,6 +234,20 @@ def main() -> None:
     ex.stage_resident(stream)
     blocks = ex.extended_blocks(0)              # (64, 263 840) complex64
 
+    # the front-end captures of the same frames (phases 6, 10, 11): 4/3
+    # and 2x oversampled by FFT on the card, the 2x one skewed by +40 ppm
+    # on the host (one thread a channel)
+    t0 = time.perf_counter()
+    up4 = fft_oversample(torch.from_numpy(stream).to(dev), 4)
+    cap_34 = up4[:, ::3].cpu().numpy()                  # input at 4/3 the rate
+    del up4
+    up2 = fft_oversample(torch.from_numpy(stream).to(dev), 2).cpu().numpy()
+    with concurrent.futures.ThreadPoolExecutor(CHANNELS) as pool:
+        cap_ppm = np.stack(list(pool.map(lambda row: sample_clock_offset(row, 40.0), up2)))
+    del up2
+    print(f"front-end captures: 3/4 {cap_34.shape}, (1/2, +40 ppm) {cap_ppm.shape} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     # -- 3. K1 against its plain version ---------------------------------
     k1_err = 0.0
     for x in (blocks[:1], blocks):
@@ -158,8 +255,7 @@ def main() -> None:
         pa, pp, pc = k1.sync_stats_plain(x)
         torch.cuda.synchronize()
         mask = pp > 1e-3
-        errs = [(a - pa).abs().max().item(), (p - pp).abs().max().item(),
-                (c - pc).abs()[mask].max().item()]
+        errs = [max_err(a, pa), max_err(p, pp), (c - pc).abs()[mask].max().item()]
         check(errs[0] <= 2e-4 and errs[1] <= 2e-4 and errs[2] <= 1e-3,
               f"sync_stats kernel disagrees with its plain version on "
               f"{tuple(x.shape)}: max |da|, |dp|, |dc| = {errs}")
@@ -194,7 +290,83 @@ def main() -> None:
                       f"terminated={terminated}: {(got != want).sum().item()} bits differ")
         print(f"K2 viterbi 256x{steps} random/punctured/tied, terminated and not: bit-exact")
 
-    # -- 5. flagship block through sync.receive --------------------------
+    # -- 5. K3 against its plain version ---------------------------------
+    def rand(shape, seed, cplx):
+        r = np.random.default_rng(seed)
+        v = r.standard_normal(shape)
+        if cplx:
+            v = v + 1j * r.standard_normal(shape)
+        return torch.from_numpy(v.astype(np.complex64 if cplx else np.float32)).to(dev)
+
+    k3_err = 0.0
+    for n_taps in (5, 48, 129, 200):
+        taps = np.random.default_rng(n_taps).standard_normal(n_taps).astype(np.float32)
+        for cplx in (False, True):
+            x = rand((2, 300), 7, cplx)
+            e = max_err(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps))
+            check(e <= 2e-4, f"fir kernel != plain: {n_taps} taps, complex={cplx}: {e:.3g}")
+            k3_err = max(k3_err, e)
+    iso = torch.zeros(2, 256, device=dev)
+    iso[0, 250] = 1.0
+    y_iso = k34.fir_filter(iso, np.ones(64, np.float32))
+    check(y_iso[1].abs().max().item() == 0.0 and y_iso[0, 250:].min().item() == 1.0,
+          "fir kernel: samples leak across rows")
+    fir_taps = scipy.signal.firwin(FIR_TAPS, 0.5).astype(np.float32)     # 65-tap low-pass
+    fir_x = torch.from_numpy(stream).to(dev)                            # (4, 4 194 304)
+    fir_h = torch.from_numpy(fir_taps).to(dev)
+    e = max_err(k34.fir_filter(fir_x, fir_h), k34.fir_filter_plain(fir_x, fir_h))
+    check(e <= 2e-4, f"fir kernel != plain on {tuple(fir_x.shape)}: {e:.3g}")
+    k3_err = max(k3_err, e)
+    print(f"K3 fir (2, 300) x 5/48/129/200 taps real and complex, {tuple(fir_x.shape)} "
+          f"complex x {FIR_TAPS} taps: max |dy| {k3_err:.3g} (atol 2e-4); rows kept apart: ok")
+
+    # -- 6. K4 against its plain version ---------------------------------
+    k4_err = 0.0
+    for (l, m) in ((1, 2), (2, 1), (3, 4), (4, 3), (5, 2)):
+        taps = ops.design_lowpass(l, m)
+        for cplx in (False, True):
+            for shape in ((600,), (2, 4, 90)):
+                x = rand(shape, l * 10 + m, cplx)
+                got = k34.polyphase_resample(x, l, m, taps)
+                want = k34.polyphase_resample_plain(x, l, m, taps)
+                check(got.shape == want.shape, f"resampler shape {got.shape} != {want.shape}")
+                e = max_err(got, want)
+                check(e <= 2e-4, f"resampler kernel != plain: {l}/{m} {shape} "
+                                 f"complex={cplx}: {e:.3g}")
+                k4_err = max(k4_err, e)
+    # the executor's general front-end input: the 4/3 capture, padded
+    ex_34 = StreamExecutor(tx.tx_plan(MCS, PSDU_LEN), device=dev, exec_cfg=dataclasses.replace(
+        cfg, frontend=FrontendConfig(resample=(3, 4))))
+    fe_34 = ex_34.frontend
+    np_out = ex_34.padded_out_len(fe_34.out_len(cap_34.shape[1]))
+    p_in, n_in_pad, _ = fe_34.padded_geometry(np_out, HALO_LEFT)
+    k4_x = torch.zeros(CHANNELS, n_in_pad, dtype=torch.complex64, device=dev)
+    k4_x[:, p_in: p_in + cap_34.shape[1]] = torch.from_numpy(cap_34).to(dev)
+    k4_taps = ops.design_lowpass(3, 4)
+    k4_h = torch.from_numpy(k4_taps).to(dev)
+    k4_y = k34.polyphase_resample(k4_x, 3, 4, k4_h)
+    e = max_err(k4_y, k34.polyphase_resample_plain(k4_x, 3, 4, k4_h))
+    check(e <= 2e-4, f"resampler kernel != plain on {tuple(k4_x.shape)} at 3/4: {e:.3g}")
+    k4_err = max(k4_err, e)
+    # past the int32 index range: j * M passes 2**31 after 85 900 outputs
+    f0, n_tone = 0.01, 1 << 20
+    tone = torch.from_numpy(np.exp(2j * np.pi * f0 * np.arange(n_tone))[None].astype(
+        np.complex64)).to(dev)
+    big_taps = ops.design_lowpass(25001, 25000)
+    y_tone = k34.polyphase_resample(tone, 25001, 25000, big_taps)
+    e = max_err(y_tone, k34.polyphase_resample_plain(tone, 25001, 25000, big_taps))
+    check(e <= 2e-4, f"resampler kernel != plain at 25001/25000: {e:.3g}")
+    k4_err = max(k4_err, e)
+    j = np.arange(200, y_tone.shape[-1] - 200)
+    truth = np.exp(2j * np.pi * f0 * j * (25000 / 25001))
+    e_tone = float(np.abs(y_tone[0, 200:-200].cpu().numpy() - truth).max())
+    check(j[-1] * 25000 >= 2**31 and e_tone <= 1e-3,
+          f"resampler at 25001/25000: tone error {e_tone:.3g} > 1e-3")
+    print(f"K4 resample 1/2 2/1 3/4 4/3 5/2 real and complex at (600,) and (2, 4, 90), "
+          f"{tuple(k4_x.shape)} at 3/4, (1, {n_tone}) at 25001/25000: max |dy| {k4_err:.3g} "
+          f"(atol 2e-4); tone error past j*M = 2**31: {e_tone:.3g} (<= 1e-3): ok")
+
+    # -- 7. flagship block through sync.receive --------------------------
     frng = np.random.default_rng(0)
     frames = frng.integers(0, 256, (4, PSDU_LEN), dtype=np.uint8)
     bursts = tx.transmit(frames, MCS, device=dev).cpu().numpy()
@@ -206,11 +378,9 @@ def main() -> None:
     xf = (xf + 0.01 * (frng.standard_normal(nf) + 1j * frng.standard_normal(nf))
           ).astype(np.complex64)
     plan = tx.tx_plan(MCS, PSDU_LEN)
-    for k in kernels:
-        k.launches = 0
+    reset()
     res, cand = sync.receive(xf, plan, max_frames=8, device=dev)
-    torch.cuda.synchronize()
-    flag_launches = {k.__name__: k.launches for k in kernels}
+    flag_launches = counts()
     valid = cand.valid.cpu().numpy()
     psdu = res.psdu.cpu().numpy()
     check(valid.sum() == 4 and np.array_equal(psdu[valid], frames),
@@ -221,26 +391,28 @@ def main() -> None:
           and np.array_equal(cres.psdu.numpy(), psdu)
           and np.abs(ccand.cfo.numpy() - cand.cfo.cpu().numpy()).max() < 1e-4,
           "flagship: the CUDA path disagrees with the port's CPU path")
-    check(all(v > 0 for v in flag_launches.values()),
+    check(flag_launches["sync_stats"] > 0 and flag_launches["viterbi_decode"] > 0,
           f"flagship: a kernel was not launched: {flag_launches}")
     print(f"flagship receive: 4/4 frames bit-exact, matches the CPU path; "
           f"launches {json.dumps(flag_launches)}")
 
-    # -- 6. StreamExecutor at the device_step shape ----------------------
-    for k in kernels:
-        k.launches = 0
+    # -- 8. StreamExecutor at the device_step shape ----------------------
+    def check_records(records, label):
+        for ci in range(CHANNELS):
+            got = {tuple(r.psdu) for r in records if r.channel == ci and r.parity_ok}
+            missing = [i for i, f in enumerate(payloads[ci]) if tuple(f) not in got]
+            check(not missing, f"{label}: channel {ci} frames {missing} not recovered")
+        n_ok = sum(r.parity_ok for r in records)
+        check(n_ok == CHANNELS * n_frames,
+              f"{label}: {n_ok} good records, expected {CHANNELS * n_frames}")
+        return n_ok
+
+    reset()
     records = ex.run(stream)
-    torch.cuda.synchronize()
-    main_launches = {k.__name__: k.launches for k in kernels}
-    check(all(v > 0 for v in main_launches.values()),
+    main_launches = counts()
+    check(main_launches["sync_stats"] > 0 and main_launches["viterbi_decode"] > 0,
           f"executor: a kernel was not launched: {main_launches}")
-    for ci in range(CHANNELS):
-        got = {tuple(r.psdu) for r in records if r.channel == ci and r.parity_ok}
-        missing = [i for i, f in enumerate(payloads[ci]) if tuple(f) not in got]
-        check(not missing, f"executor: channel {ci} frames {missing} not recovered")
-    n_ok = sum(r.parity_ok for r in records)
-    check(n_ok == CHANNELS * n_frames, f"executor: {n_ok} good records, "
-          f"expected {CHANNELS * n_frames}")
+    n_ok = check_records(records, "executor")
     print(f"executor run: {n_ok}/{CHANNELS * n_frames} frames bit-exact; "
           f"launches {json.dumps(main_launches)}")
 
@@ -280,15 +452,72 @@ def main() -> None:
           f"layers [device span, device busy] (ms) {json.dumps(spans)}")
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
         print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
+    del ex
 
-    # -- 7. kernel timings at the main path's shapes ---------------------
+    # -- 9. ops.fir_filter, the stand-alone FIR entry point --------------
+    reset()
+    fir_y = ops.fir_filter(fir_x, fir_taps)
+    fir_launches = counts()
+    check(fir_launches["fir_filter"] > 0, f"ops.fir_filter: K3 was not launched: {fir_launches}")
+    check(bool(torch.isfinite(fir_y).all()) and fir_y.shape == fir_x.shape,
+          "ops.fir_filter: output not finite or of the wrong shape")
+    print(f"ops.fir_filter {tuple(fir_x.shape)} x {FIR_TAPS} taps; "
+          f"launches {json.dumps(fir_launches)}")
+    del fir_y
+
+    # -- 10. executor with the general front-end (3/4) -------------------
+    reset()
+    t_run = time.perf_counter()
+    records = ex_34.run(cap_34)
+    gen_launches = counts()
+    t_run = time.perf_counter() - t_run
+    check(all(gen_launches[k] > 0 for k in ("sync_stats", "viterbi_decode",
+                                            "polyphase_resample")),
+          f"executor 3/4: a kernel was not launched: {gen_launches}")
+    n_ok = check_records(records, "executor 3/4")
+    print(f"executor run, resample=(3, 4), input {cap_34.shape}: {n_ok}/{CHANNELS * n_frames} "
+          f"frames bit-exact ({t_run:.2f} s wall); launches {json.dumps(gen_launches)}")
+    del ex_34
+
+    # -- 11. executor with decimation + clock trim -----------------------
+    ex_ppm = StreamExecutor(tx.tx_plan(MCS, PSDU_LEN), device=dev, exec_cfg=dataclasses.replace(
+        cfg, frontend=FrontendConfig(resample=(1, 2), ppm=40.0)))
+    reset()
+    t_run = time.perf_counter()
+    records = ex_ppm.run(cap_ppm)
+    ppm_launches = counts()
+    t_run = time.perf_counter() - t_run
+    check(ppm_launches["sync_stats"] > 0 and ppm_launches["viterbi_decode"] > 0,
+          f"executor (1/2, +40 ppm): a kernel was not launched: {ppm_launches}")
+    n_ok = check_records(records, "executor (1/2, +40 ppm)")
+    print(f"executor run, resample=(1, 2) ppm=40, input {cap_ppm.shape}: "
+          f"{n_ok}/{CHANNELS * n_frames} frames bit-exact ({t_run:.2f} s wall); "
+          f"launches {json.dumps(ppm_launches)}")
+    del ex_ppm, cap_ppm
+
+    # -- 12. front-end pass rates ----------------------------------------
+    frng = np.random.default_rng(5)
+    rates = {}
+    for label, fe_cfg in (("decim2", FrontendConfig(resample=(1, 2))),
+                          ("ppm40", FrontendConfig(ppm=40.0)),
+                          ("general3/4", FrontendConfig(resample=(3, 4)))):
+        fe = cached_frontend(fe_cfg)
+        _, n_pad, aux = fe.padded_geometry(FE_OUT_PAD, 256)
+        wire = torch.from_numpy((frng.standard_normal((1, n_pad, 2)) * 0.1).astype(
+            np.float32)).to(dev)
+        aux = tuple(a.to(dev) for a in aux)
+        ms = cuda_ms(lambda: corrected_resident(fe, wire, FE_OUT_PAD, aux), 5)
+        rates[label] = {"input_samples": n_pad, "ms": round(ms, 4),
+                        "input_msamples_per_s": round(n_pad / ms / 1e3, 1)}
+    print(f"front-end pass, {FE_OUT_PAD} padded outputs, f32 wire, 1 channel (CUDA events, "
+          f"5 passes; {card}): {json.dumps(rates)}")
+
+    # -- 13. kernel timings at the main paths' shapes --------------------
     rows, n_ext = blocks.shape
     k1_ms = cuda_ms(lambda: k1.sync_stats(blocks), 20)
     k1_plain = cuda_ms(lambda: k1.sync_stats_plain(blocks), 3)
-    k1_bytes = rows * n_ext * (8 + 16)
-    k1_ops = rows * n_ext * K1_OPS_PER_SAMPLE
-    k1_bound = {"bytes": k1_bytes / HBM_BYTES_PER_S * 1e3,
-                "operations": k1_ops / FP32_OPS_PER_S * 1e3}
+    k1_bound = {"bytes": rows * n_ext * (8 + 16) / HBM_BYTES_PER_S * 1e3,
+                "operations": rows * n_ext * K1_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
 
     n_slots = CHANNELS * TIME_BLOCKS * MAX_FRAMES
     pay, sig = llrs(n_slots, payload_steps, "random", 1), llrs(n_slots, 24, "random", 2)
@@ -299,25 +528,79 @@ def main() -> None:
     k2_steps = n_slots * (payload_steps + 24)
     k2_bound = {"bytes": k2_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
                 "operations": k2_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+
+    # K3 on the 4-channel stream, 65 taps; library: cuDNN conv1d on the
+    # re/im rows (laid out outside the timed call) with flipped taps
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k3_ms = cuda_ms(lambda: k34.fir_filter(fir_x, fir_h), 20)
+    k3_plain = cuda_ms(lambda: k34.fir_filter_plain(fir_x, fir_h), 3)
+    re_im = torch.view_as_real(fir_x).permute(0, 2, 1).reshape(-1, 1, n).contiguous()
+    w3 = fir_h.flip(0).reshape(1, 1, -1)
+    k3_lib = cuda_ms(lambda: torch.nn.functional.conv1d(re_im, w3, padding=FIR_TAPS - 1), 20)
+    lib_y = torch.nn.functional.conv1d(re_im, w3, padding=FIR_TAPS - 1)[..., :n]
+    k3_lib_err = max_err(torch.view_as_complex(lib_y.reshape(CHANNELS, 2, n).permute(
+        0, 2, 1).contiguous()), k34.fir_filter(fir_x, fir_h))
+    del re_im, lib_y
+    k3_n = fir_x.numel()
+    k3_bound = {"bytes": (k3_n * (8 + 8) + FIR_TAPS * 4) / HBM_BYTES_PER_S * 1e3,
+                "operations": k3_n * FIR_TAPS * OPS_PER_COMPLEX_TAP / FP32_OPS_PER_S * 1e3}
+
+    # K4 on the general front-end's input; library: conv1d with stride M
+    # over the L-fold zero-stuffed re/im rows (stuffed and padded outside
+    # the timed call) with flipped taps
+    k4_ms = cuda_ms(lambda: k34.polyphase_resample(k4_x, 3, 4, k4_h), 20)
+    k4_plain = cuda_ms(lambda: k34.polyphase_resample_plain(k4_x, 3, 4, k4_h), 3)
+    n_out4 = k4_y.shape[-1]
+    n_t4 = k4_taps.size
+    stuffed = torch.zeros(2 * CHANNELS, 1, n_in_pad * 3, device=dev)
+    stuffed[:, 0, ::3] = torch.view_as_real(k4_x).permute(0, 2, 1).reshape(-1, n_in_pad)
+    left = n_t4 - 1 - (n_t4 - 1) // 2
+    right = max(0, (n_out4 - 1) * 4 + n_t4 - stuffed.shape[-1] - left)
+    stuffed = torch.nn.functional.pad(stuffed, (left, right))
+    w4 = k4_h.flip(0).reshape(1, 1, -1)
+    k4_lib = cuda_ms(lambda: torch.nn.functional.conv1d(stuffed, w4, stride=4), 20)
+    lib_y = torch.nn.functional.conv1d(stuffed, w4, stride=4)[..., :n_out4]
+    k4_lib_err = max_err(torch.view_as_complex(lib_y.reshape(CHANNELS, 2, n_out4).permute(
+        0, 2, 1).contiguous()), k4_y)
+    del stuffed, lib_y
+    # each term that the direct form sums is counted: every tap index is
+    # valid (36 taps = 12 a phase x 3), a sample index only inside the row
+    j4 = torch.arange(n_out4, device=dev, dtype=torch.int64) * 4 + (n_t4 - 1) // 2
+    base4 = j4 // 3
+    terms = sum(int(((base4 - k >= 0) & (base4 - k < n_in_pad)).sum())
+                for k in range(-(-n_t4 // 3)))
+    k4_bound = {"bytes": (k4_x.numel() * 8 + k4_y.numel() * 8 + n_t4 * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                "operations": CHANNELS * terms * OPS_PER_COMPLEX_TAP / FP32_OPS_PER_S * 1e3}
+    print(f"library yardsticks (conv1d, TF32 off): fir {k3_lib:.4f} ms (max |dy| vs K3 "
+          f"{k3_lib_err:.3g}), resample {k4_lib:.4f} ms (max |dy| vs K4 {k4_lib_err:.3g})")
+
     pkg_src = f"{PKG}/csrc"
+    jax_ops = "gnuradio_wifi_imagetransfer_tpu/ops"
     out = []
-    for name, src, replaces, ms, plain, bound in (
-            ("sync_stats", f"{pkg_src}/sync_stats.cu",
-             "gnuradio_wifi_imagetransfer_tpu/ops/pallas_sync.py:104", k1_ms, k1_plain,
-             k1_bound),
-            ("viterbi_decode", f"{pkg_src}/viterbi_acs.cu",
-             "gnuradio_wifi_imagetransfer_tpu/ops/pallas_viterbi.py:125", k2_ms, k2_plain,
-             k2_bound)):
+    for name, src, replaces, launches, err, ms, plain, bound, lib in (
+            ("sync_stats", "sync_stats.cu", "pallas_sync.py:104",
+             main_launches["sync_stats"], k1_err, k1_ms, k1_plain, k1_bound, None),
+            ("viterbi_decode", "viterbi_acs.cu", "pallas_viterbi.py:125",
+             main_launches["viterbi_decode"], float(k2_err), k2_ms, k2_plain, k2_bound, None),
+            ("fir_filter", "fir.cu", "pallas_fir.py:84", fir_launches["fir_filter"],
+             k3_err, k3_ms, k3_plain, k3_bound, k3_lib),
+            ("polyphase_resample", "fir.cu", "pallas_fir.py:179",
+             gen_launches["polyphase_resample"], k4_err, k4_ms, k4_plain, k4_bound, k4_lib)):
         by = max(bound, key=bound.get)
-        out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                    "launches": main_launches[name],
-                    "max_abs_err": k1_err if name == "sync_stats" else float(k2_err),
-                    "ms": ms, "plain_ms": plain, "bound_ms": bound[by], "bound_by": by,
-                    "library_ms": None})
+        out.append({"name": name, "route": "cuda", "source": f"{pkg_src}/{src}",
+                    "replaces": f"{jax_ops}/{replaces}", "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
+                    "bound_by": by, "library_ms": lib})
     print(f"per executor step: sync_stats on ({rows}, {n_ext}): {k1_ms:.4f} ms, plain "
           f"{k1_plain:.3f} ms; viterbi_decode on ({n_slots}, {payload_steps}): "
           f"{k2_pay:.4f} ms, plain {k2_pay_plain:.2f} ms, and on ({n_slots}, 24): "
           f"{k2_sig:.4f} ms, plain {k2_sig_plain:.2f} ms (CUDA events; {card})")
+    print(f"fir_filter on {tuple(fir_x.shape)} x {FIR_TAPS} taps: {k3_ms:.4f} ms, plain "
+          f"{k3_plain:.3f} ms, conv1d {k3_lib:.4f} ms; polyphase_resample 3/4 on "
+          f"{tuple(k4_x.shape)} -> {n_out4}: {k4_ms:.4f} ms, plain {k4_plain:.3f} ms, "
+          f"conv1d {k4_lib:.4f} ms (CUDA events; {card})")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

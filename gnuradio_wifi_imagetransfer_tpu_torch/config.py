@@ -8,8 +8,9 @@ Reference parameter provenance:
     (threshold 0.56, min_plateau 2, sync_length 320)
   - chan_est algorithms:  IRS_AP.py:139-141 (LS / LMS / COMB / STA)
 
-The rate-conversion front-end (``FrontendConfig``) is not ported yet, so
-``ExecutorConfig.frontend`` must be ``None``.
+``FrontendConfig`` configures the rate-conversion front-end
+(``parallel/frontend.py``), which the local ``StreamExecutor`` runs on the
+device ahead of sync.
 """
 
 from __future__ import annotations
@@ -58,10 +59,36 @@ class PhyConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Sample-rate-conversion front-end for the streaming executor.
+
+    The executor ingests a stream at ``nominal * resample[1]/resample[0] *
+    (1 + ppm*1e-6)`` and corrects it to the nominal grid on the device
+    before sync:
+
+      resample: (L, M) rational ratio; an input oversampled M/L times is
+                resampled by L/M (e.g. (1, 2) for a 2x-oversampled capture).
+      ppm:      residual TX/RX sample-clock offset to undo (the stream was
+                produced by a clock running (1 + ppm*1e-6) fast).
+
+    parallel/frontend.py factors the combined exact ratio into up to two
+    stages (integer-decimation FIR + fractional-delay clock trim) with a
+    general polyphase fallback.
+    """
+
+    resample: tuple[int, int] = (1, 1)
+    ppm: float = 0.0
+    taps_per_phase: int = 12           # anti-alias FIR length per decim phase
+    frac_taps: int = 32                # fractional-delay interpolator taps
+    sub_block: int = 512               # clock-trim granularity (samples);
+                                       # timing ripple = sub_block * |ppm| * 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutorConfig:
     """Streaming block-executor configuration."""
 
-    frontend: object | None = None     # rate-conversion front-end: not ported
+    frontend: FrontendConfig | None = None   # rate-conversion front-end (None = off)
     block_size: int = 1 << 16          # samples per time-block
     halo: int = 4096                   # unused (as in the JAX package); kept so
                                        # configs round-trip from it
@@ -69,9 +96,3 @@ class ExecutorConfig:
     channels: int = 1                  # parallel 20 MHz channels
     time_shards: int = 1               # time blocks per step
     wire_format: str = "f32"           # host->device sample format: f32, sc16, sc8
-
-    def __post_init__(self):
-        if self.frontend is not None:
-            raise NotImplementedError(
-                "the rate-conversion front-end is not ported yet: "
-                "ExecutorConfig.frontend must be None")

@@ -1,9 +1,20 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+"""Hot-path ops: the rational resampler and FIR (``resampler``) and the
+hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version:
 
     sync_stats   fused STF detector statistics (replaces ops/pallas_sync.py)
     viterbi_acs  K=7 Viterbi ACS + traceback (replaces ops/pallas_viterbi.py)
+    fir          causal FIR (K3) and polyphase resampler (K4) (replace
+                 ops/pallas_fir.py)
 
 The sources live in ``csrc/`` and are compiled with nvcc at first use
 (``ops/build.py``); nothing is compiled when a module is imported.
 """
+
+from gnuradio_wifi_imagetransfer_tpu_torch.ops.resampler import (  # noqa: F401
+    correct_sample_clock,
+    design_lowpass,
+    fir_filter,
+    polyphase_resample,
+    rational_resampler,
+)

@@ -9,7 +9,9 @@ edited source is rebuilt and a stale library is never loaded.
 
 ``--fmad=false`` keeps nvcc from contracting a multiply and an add into
 one FMA: the Viterbi kernel must round every add and multiply exactly as
-the plain version does to break metric ties the same way.
+the plain version does to break metric ties the same way. The FIR and
+resampler kernels (``csrc/fir.cu``) spell their multiply-adds as
+``__fmaf_rn`` for that reason.
 """
 
 from __future__ import annotations
@@ -92,6 +94,11 @@ def library() -> ctypes.CDLL:
     lib.gwt_viterbi_smem_bytes.restype = i64
     lib.gwt_viterbi_decode.argtypes = [vp, vp, i64, i64, i32, vp]
     lib.gwt_viterbi_decode.restype = i32
+    lib.gwt_fir.argtypes = [vp, vp, vp, i64, i64, i64, i32, vp]
+    lib.gwt_fir.restype = i32
+    lib.gwt_polyphase_resample.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64, i64,
+                                           i32, vp]
+    lib.gwt_polyphase_resample.restype = i32
     lib.gwt_error_string.argtypes = [i32]
     lib.gwt_error_string.restype = ctypes.c_char_p
     return lib

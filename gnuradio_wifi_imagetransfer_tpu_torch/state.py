@@ -54,7 +54,8 @@ def load_reference_state(arrays: dict[str, np.ndarray], cfg: dict):
 
     arrays: name -> array, as ``reference_arrays`` names them; every table
       must be present and equal the port's exactly (shape, dtype, values).
-    cfg: {"phy": asdict(PhyConfig), "executor": asdict(ExecutorConfig)}.
+    cfg: {"phy": asdict(PhyConfig), "executor": asdict(ExecutorConfig)};
+      a nested front-end dict becomes a FrontendConfig.
     Returns (PhyConfig, ExecutorConfig) of the port.
     """
     ours = reference_arrays()
@@ -69,5 +70,10 @@ def load_reference_state(arrays: dict[str, np.ndarray], cfg: dict):
     phy = dict(cfg["phy"])
     phy["encoding"] = config.Encoding(int(phy["encoding"]))
     phy["chan_est"] = config.ChannelEstimator(int(phy["chan_est"]))
+    ex = dict(cfg["executor"])
+    if ex.get("frontend") is not None:
+        fe = dict(ex["frontend"])
+        fe["resample"] = tuple(fe["resample"])
+        ex["frontend"] = _dataclass_from(config.FrontendConfig, fe)
     return (_dataclass_from(config.PhyConfig, phy),
-            _dataclass_from(config.ExecutorConfig, dict(cfg["executor"])))
+            _dataclass_from(config.ExecutorConfig, ex))

@@ -74,6 +74,13 @@ def test_load_reference_state_accepts_the_jax_tables():
     assert len(arrays) > 40
 
 
+def test_load_reference_state_converts_the_frontend_config():
+    fe = dict(resample=(3, 4), ppm=-12.5, sub_block=256)
+    cfg = _jax_cfg(frontend=jconfig.FrontendConfig(**fe))
+    _, ex = state.load_reference_state(state.reference_arrays(jparams), cfg)
+    assert ex == config.ExecutorConfig(frontend=config.FrontendConfig(**fe))
+
+
 def test_load_reference_state_rejects_a_changed_table():
     arrays = state.reference_arrays(jparams)
     arrays["POLARITY"] = arrays["POLARITY"].copy()
@@ -87,8 +94,9 @@ def test_load_reference_state_rejects_a_changed_table():
 
 
 def test_unported_options_raise():
+    fe = config.ExecutorConfig(frontend=config.FrontendConfig(resample=(1, 2)))
     with pytest.raises(NotImplementedError):
-        config.ExecutorConfig(frontend=object())
+        StreamExecutor(tx.tx_plan(2, 50), mesh=object(), exec_cfg=fe, device="cpu")
     with pytest.raises(NotImplementedError):
         StreamExecutor(tx.tx_plan(2, 50), mesh=object(), device="cpu")
     h = torch.ones(1, 52, dtype=torch.complex64)
