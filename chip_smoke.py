@@ -9,11 +9,21 @@ holds each hand-written kernel against its plain PyTorch version:
   1. builds the kernels from ``gnuradio_wifi_imagetransfer_tpu_torch/csrc``
      with nvcc (sm_90a) and prints the build seconds;
   2. prints the card's name and power limit (nvidia-smi);
-  3. checks the sync-statistics kernel (K1) against its plain version on
-     the executor's real blocks: one 263 840-sample row and the 64-row
-     batch (atol 2e-4 on a and p, 1e-3 on c where p > 1e-3);
+  3. checks the dense sync-statistics kernel (K1) against its plain
+     version on the executor's real blocks: one 263 840-sample row and
+     the 64-row batch (atol 2e-4 on a and p, 1e-3 on c where p > 1e-3);
+     then the fused STF detector (K1's redesign, ``sync_detect``) on the
+     64 blocks with the executor's search bounds, on the flagship block,
+     and on synthetic rows with edges at tile boundaries (991-993,
+     1023-1025, 1983-1985, 2976), more than K edges in one tile and edges
+     just inside and outside the search bounds: starts and valid exact,
+     cfo within 1e-4
+     and ratio within 1e-3 of ``sync_detect_plain``, and every field
+     bit-identical to dense K1 plus the plain torch glue;
   4. checks the Viterbi kernel (K2) bit-exact against its plain version on
-     256 x 422 and 256 x 24 LLRs that are random, punctured and tied;
+     256 x 422 and 256 x 24 LLRs that are random, punctured and tied, one
+     segment a launch and both segments in one launch
+     (``viterbi_decode_many``, 8 and 16 lanes a frame);
   5. checks the FIR kernel (K3) against its plain version (atol 2e-4): (2,
      300) with 5, 48, 129 and 200 taps, real and complex; (4, 4 194 304)
      complex with 65 taps; rows kept apart (batch isolation);
@@ -30,8 +40,10 @@ holds each hand-written kernel against its plain PyTorch version:
      (4 channels x 16 blocks x 262 144 samples, sc16 wire, 4 slots, 3
      frames per block per channel); all 192 frames must come back
      bit-exact; prints the step rate timed with CUDA events and a profile;
-  9. calls ``ops.fir_filter``, the stand-alone FIR entry point, on the
-     4-channel stream with a 65-tap low-pass (K3);
+  9. calls the stand-alone entry points: ``ops.fir_filter`` on the
+     4-channel stream with a 65-tap low-pass (K3), ``sync.sync_stats`` on
+     the executor's blocks (dense K1) and ``viterbi.decode`` on the
+     step's payload trellises (K2, one segment);
  10. runs the same executor on a 4/3-rate capture of the same frames (FFT
      oversampled) with ``FrontendConfig(resample=(3, 4))``: the general
      front-end (K4) then the RX path; 192 of 192 frames bit-exact;
@@ -41,10 +53,16 @@ holds each hand-written kernel against its plain PyTorch version:
  12. times the resident front-end correction pass (CUDA events) for
      decim2, ppm40 and general 3/4 at 2**22 padded outputs, left pad 256
      (the JAX bench's shape), in input Msamples/s;
- 13. prints one JSON line of kernel timings, bounds and launch counts.
+ 13. times each kernel (CUDA events) beside its plain version and bound:
+     dense K1 at 8 and 16 outputs a thread, the fused detector and dense
+     K1 plus the torch glue it replaces, the segmented K2 at 8 and 16
+     lanes a frame and as two one-segment launches, K2's chain floor; then
+     prints one JSON line of kernel timings, bounds and launch counts.
 
 Launch counts are set to 0 just before each main-path run (7 to 11) and
 read just after; launches made to compare or time a kernel do not count.
+An executor step launches the fused detector once and the segmented
+Viterbi kernel once, and dense K1 not at all.
 The last line of stdout is {"ok": true, "device": {...}}. Any failure
 exits non-zero. Without CUDA, or without the port package beside this
 file, it exits non-zero and prints no result.
@@ -89,6 +107,13 @@ K1_OPS_PER_SAMPLE = 171
 K2_OPS_PER_STEP = 64 * 2 * 4 + 64 + 63 + 64
 # a real tap on a complex sample: 2 multiplies + 2 adds
 OPS_PER_COMPLEX_TAP = 4
+# K2's chain floor, a design estimate in dependent cycles: an ACS step
+# (two shared loads in flight together ~33, add 4, compare/select 8, 3
+# in-lane max 12, 3 shuffles with their max ~84, subtract 4, stores and
+# the warp sync ~20) and a traceback step (shared byte load ~33, bit and
+# state arithmetic ~12)
+K2_ACS_CYCLES = 165
+K2_TRACEBACK_CYCLES = 45
 
 
 def fail(msg: str) -> None:
@@ -167,6 +192,22 @@ def sample_clock_offset(x: np.ndarray, ppm: float, n_taps: int = 16,
     return y
 
 
+def burst_rows(n: int, edges_per_row, min_plateau: int, seed: int):
+    """Rows of faint noise with 48-sample bursts of a unit-magnitude
+    16-periodic signal, each placed so that its rising detection edge
+    falls at the given index (c first reaches 0.56 36 samples into a
+    burst: 21/37 there, 20/36 a sample before)."""
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.standard_normal((len(edges_per_row), n))
+                + 1j * rng.standard_normal((len(edges_per_row), n)))
+    for row, edges in enumerate(edges_per_row):
+        for e in edges:
+            p = e - 36 - (min_plateau - 1)
+            theta = rng.uniform(0, 2 * np.pi, 16)
+            x[row, p: p + 48] = np.exp(1j * theta[np.arange(48) % 16])
+    return x.astype(np.complex64)
+
+
 def main() -> None:
     import torch
 
@@ -183,7 +224,11 @@ def main() -> None:
     import scipy.signal
 
     from gnuradio_wifi_imagetransfer_tpu_torch import ops
-    from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig, FrontendConfig
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+        ExecutorConfig,
+        FrontendConfig,
+        PhyConfig,
+    )
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
@@ -194,10 +239,13 @@ def main() -> None:
         corrected_resident,
     )
     from gnuradio_wifi_imagetransfer_tpu_torch.parallel.frontend import cached_frontend
-    from gnuradio_wifi_imagetransfer_tpu_torch.phy import sync, tx
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import sync, tx, viterbi
 
     dev = torch.device("cuda")
-    kernels = [k1.sync_stats, k2.viterbi_decode, k34.fir_filter, k34.polyphase_resample]
+    kernels = [k1.sync_stats, k1.sync_detect, k2.viterbi_decode, k2.viterbi_decode_many,
+               k34.fir_filter, k34.polyphase_resample]
+    phy = PhyConfig()
+    thr, mp = phy.sync_threshold, phy.min_plateau
 
     def reset():
         for k in kernels:
@@ -206,6 +254,17 @@ def main() -> None:
     def counts():
         torch.cuda.synchronize()
         return {k.__name__: k.launches for k in kernels}
+
+    def check_path_launches(launches, steps, label, also=()):
+        """A step launches the fused detector once and the segmented
+        Viterbi kernel once, dense K1 and one-segment K2 never."""
+        check(launches["sync_detect"] == steps and launches["viterbi_decode_many"] == steps
+              and launches["sync_stats"] == 0 and launches["viterbi_decode"] == 0
+              and all(launches[k] > 0 for k in also),
+              f"{label}: launches {launches} for {steps} steps")
+
+    def n_steps(executor, capture):
+        return len(range(0, executor.effective_len(capture.shape[1]), TIME_BLOCKS * BLOCK))
 
     # -- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -233,6 +292,17 @@ def main() -> None:
     ex = StreamExecutor(tx.tx_plan(MCS, PSDU_LEN), exec_cfg=cfg, device=dev)
     ex.stage_resident(stream)
     blocks = ex.extended_blocks(0)              # (64, 263 840) complex64
+    # the flagship block (phases 3 and 7): 4 frames in 32 768 samples
+    frng = np.random.default_rng(0)
+    frames = frng.integers(0, 256, (4, PSDU_LEN), dtype=np.uint8)
+    bursts = tx.transmit(frames, MCS, device=dev).cpu().numpy()
+    nf = 1 << 15
+    xf = np.zeros(nf, np.complex64)
+    for i, b in enumerate(bursts):
+        pos = min(200 + i * (nf // 4), nf - b.size - 1)
+        xf[pos: pos + b.size] += 0.5 * b
+    xf = (xf + 0.01 * (frng.standard_normal(nf) + 1j * frng.standard_normal(nf))
+          ).astype(np.complex64)
 
     # the front-end captures of the same frames (phases 6, 10, 11): 4/3
     # and 2x oversampled by FFT on the card, the 2x one skewed by +40 ppm
@@ -263,6 +333,52 @@ def main() -> None:
         print(f"K1 sync_stats {tuple(x.shape)}: max |da| {errs[0]:.3g}, |dp| {errs[1]:.3g}, "
               f"|dc| {errs[2]:.3g} (atol 2e-4, 2e-4, 1e-3): ok")
 
+    def detect_check(x, k, plateau, lo, hi, label):
+        """The fused detector against its plain version and against dense
+        K1 plus the plain glue; returns (max |dcfo|, max |dratio|, valid)."""
+        got = k1.sync_detect(x, k, thr, plateau, lo, hi)
+        want = k1.sync_detect_plain(x, k, thr, plateau, lo, hi)
+        a, _, c = k1.sync_stats(x)
+        glue = k1.detect_from_stats(a, c, k, thr, plateau, lo, hi)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"sync_detect != plain on {label}: starts {got[0].tolist()} vs "
+              f"{want[0].tolist()}")
+        errs = max_err(got[2], want[2]), max_err(got[3], want[3])
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-3,
+              f"sync_detect != plain on {label}: max |dcfo|, |dratio| = {errs}")
+        check(all(torch.equal(g, w) for g, w in zip(got, glue)),
+              f"sync_detect is not bit-identical to dense K1 + glue on {label}")
+        return errs[0], errs[1], int(got[1].sum())
+
+    k1d_err, n_valid = 0.0, {}
+    for x, k, lo, hi, label in (
+            (blocks, MAX_FRAMES, HALO_LEFT, HALO_LEFT + BLOCK, "executor blocks"),
+            (torch.from_numpy(xf).to(dev), 8, 0, None, "flagship block")):
+        e_cfo, e_ratio, n_valid[label] = detect_check(x, k, mp, lo, hi, label)
+        k1d_err = max(k1d_err, e_cfo, e_ratio)
+    check(n_valid["executor blocks"] >= CHANNELS * n_frames and n_valid["flagship block"] >= 4,
+          f"sync_detect: valid candidates {n_valid}")
+    # edges on tile boundaries, more than K in one tile, near the end
+    edges = [[991, 1984], [992, 1985], [993, 1983], [1023, 2976], [1024], [1025],
+             list(range(2100, 3072, 112)) + [5000], [7000], []]
+    for plateau in (1, 2, 3):
+        x = torch.from_numpy(burst_rows(7200, edges, plateau, seed=plateau)).to(dev)
+        for k, lo, hi in ((4, 0, None), (1, 0, None), (8, 0, None), (4, 992, None),
+                          (4, 993, None), (4, 0, 992), (4, 0, 993), (4, 991, 994),
+                          (4, 1023, 1026), (4, 2976, 7000), (4, 2977, 7001)):
+            label = f"burst rows, min_plateau {plateau}, K {k}, search [{lo}, {hi})"
+            e_cfo, e_ratio, _ = detect_check(x, k, plateau, lo, hi, label)
+            k1d_err = max(k1d_err, e_cfo, e_ratio)
+        starts = k1.sync_detect(x, 4, thr, plateau)[0].cpu().tolist()
+        check(all(starts[r][: len(e)] == [v - (plateau - 1) for v in sorted(e)[:4]]
+                  for r, e in enumerate(edges)),
+              f"sync_detect: burst triggers {starts} not where placed")
+    print(f"K1 sync_detect: executor blocks ({n_valid['executor blocks']} valid), flagship "
+          f"({n_valid['flagship block']} valid), burst rows at tile boundaries / more than K "
+          f"a tile / search bounds, min_plateau 1-3: starts and valid exact, max |dcfo|, "
+          f"|dratio| {k1d_err:.3g} (atol 1e-4, 1e-3); bit-identical to dense K1 + glue: ok")
+
     # -- 4. K2 against its plain version, bit-exact ----------------------
     def llrs(b, steps, kind, seed):
         r = np.random.default_rng(seed)
@@ -289,6 +405,18 @@ def main() -> None:
                       f"viterbi kernel != plain on 256x{steps} {kind} "
                       f"terminated={terminated}: {(got != want).sum().item()} bits differ")
         print(f"K2 viterbi 256x{steps} random/punctured/tied, terminated and not: bit-exact")
+    for kind in ("random", "punctured", "tied"):
+        for terminated in (True, False):
+            segs = [llrs(256, payload_steps, kind, seed=7), llrs(256, 24, kind, seed=8)]
+            flags = [terminated, not terminated]
+            want = k2.viterbi_decode_many_plain(segs, flags)
+            for lanes in (8, 16):
+                got = k2._decode_segments(segs, flags, lanes)[0]
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"viterbi_decode_many != plain on 256x{payload_steps} + 256x24 {kind} "
+                      f"terminated={flags}, {lanes} lanes a frame")
+    print(f"K2 viterbi_decode_many 256x{payload_steps} + 256x24 in one launch, "
+          f"random/punctured/tied, terminated and not, 8 and 16 lanes a frame: bit-exact")
 
     # -- 5. K3 against its plain version ---------------------------------
     def rand(shape, seed, cplx):
@@ -367,16 +495,6 @@ def main() -> None:
           f"(atol 2e-4); tone error past j*M = 2**31: {e_tone:.3g} (<= 1e-3): ok")
 
     # -- 7. flagship block through sync.receive --------------------------
-    frng = np.random.default_rng(0)
-    frames = frng.integers(0, 256, (4, PSDU_LEN), dtype=np.uint8)
-    bursts = tx.transmit(frames, MCS, device=dev).cpu().numpy()
-    nf = 1 << 15
-    xf = np.zeros(nf, np.complex64)
-    for i, b in enumerate(bursts):
-        pos = min(200 + i * (nf // 4), nf - b.size - 1)
-        xf[pos: pos + b.size] += 0.5 * b
-    xf = (xf + 0.01 * (frng.standard_normal(nf) + 1j * frng.standard_normal(nf))
-          ).astype(np.complex64)
     plan = tx.tx_plan(MCS, PSDU_LEN)
     reset()
     res, cand = sync.receive(xf, plan, max_frames=8, device=dev)
@@ -391,8 +509,7 @@ def main() -> None:
           and np.array_equal(cres.psdu.numpy(), psdu)
           and np.abs(ccand.cfo.numpy() - cand.cfo.cpu().numpy()).max() < 1e-4,
           "flagship: the CUDA path disagrees with the port's CPU path")
-    check(flag_launches["sync_stats"] > 0 and flag_launches["viterbi_decode"] > 0,
-          f"flagship: a kernel was not launched: {flag_launches}")
+    check_path_launches(flag_launches, 1, "flagship")
     print(f"flagship receive: 4/4 frames bit-exact, matches the CPU path; "
           f"launches {json.dumps(flag_launches)}")
 
@@ -410,8 +527,7 @@ def main() -> None:
     reset()
     records = ex.run(stream)
     main_launches = counts()
-    check(main_launches["sync_stats"] > 0 and main_launches["viterbi_decode"] > 0,
-          f"executor: a kernel was not launched: {main_launches}")
+    check_path_launches(main_launches, n_steps(ex, stream), "executor")
     n_ok = check_records(records, "executor")
     print(f"executor run: {n_ok}/{CHANNELS * n_frames} frames bit-exact; "
           f"launches {json.dumps(main_launches)}")
@@ -454,7 +570,7 @@ def main() -> None:
         print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
     del ex
 
-    # -- 9. ops.fir_filter, the stand-alone FIR entry point --------------
+    # -- 9. the stand-alone entry points ---------------------------------
     reset()
     fir_y = ops.fir_filter(fir_x, fir_taps)
     fir_launches = counts()
@@ -464,6 +580,22 @@ def main() -> None:
     print(f"ops.fir_filter {tuple(fir_x.shape)} x {FIR_TAPS} taps; "
           f"launches {json.dumps(fir_launches)}")
     del fir_y
+    reset()
+    a, p, c = sync.sync_stats(blocks)
+    stats_launches = counts()
+    check(stats_launches["sync_stats"] == 1 and all(
+        bool(torch.isfinite(v).all()) and v.shape == blocks.shape for v in (a, p, c)),
+          f"sync.sync_stats: not one dense K1 launch ({stats_launches}), or bad output")
+    del a, p, c
+    n_slots = CHANNELS * TIME_BLOCKS * MAX_FRAMES
+    pay, sig = llrs(n_slots, payload_steps, "random", 1), llrs(n_slots, 24, "random", 2)
+    reset()
+    vit_bits = viterbi.decode(pay.reshape(n_slots, -1), payload_steps)
+    vit_launches = counts()
+    check(vit_launches["viterbi_decode"] == 1 and vit_bits.shape == (n_slots, payload_steps),
+          f"viterbi.decode: not one one-segment K2 launch ({vit_launches}), or bad output")
+    print(f"sync.sync_stats {tuple(blocks.shape)}; launches {json.dumps(stats_launches)}; "
+          f"viterbi.decode ({n_slots}, {2 * payload_steps}); launches {json.dumps(vit_launches)}")
 
     # -- 10. executor with the general front-end (3/4) -------------------
     reset()
@@ -471,9 +603,8 @@ def main() -> None:
     records = ex_34.run(cap_34)
     gen_launches = counts()
     t_run = time.perf_counter() - t_run
-    check(all(gen_launches[k] > 0 for k in ("sync_stats", "viterbi_decode",
-                                            "polyphase_resample")),
-          f"executor 3/4: a kernel was not launched: {gen_launches}")
+    check_path_launches(gen_launches, n_steps(ex_34, cap_34), "executor 3/4",
+                        also=("polyphase_resample",))
     n_ok = check_records(records, "executor 3/4")
     print(f"executor run, resample=(3, 4), input {cap_34.shape}: {n_ok}/{CHANNELS * n_frames} "
           f"frames bit-exact ({t_run:.2f} s wall); launches {json.dumps(gen_launches)}")
@@ -487,8 +618,7 @@ def main() -> None:
     records = ex_ppm.run(cap_ppm)
     ppm_launches = counts()
     t_run = time.perf_counter() - t_run
-    check(ppm_launches["sync_stats"] > 0 and ppm_launches["viterbi_decode"] > 0,
-          f"executor (1/2, +40 ppm): a kernel was not launched: {ppm_launches}")
+    check_path_launches(ppm_launches, n_steps(ex_ppm, cap_ppm), "executor (1/2, +40 ppm)")
     n_ok = check_records(records, "executor (1/2, +40 ppm)")
     print(f"executor run, resample=(1, 2) ppm=40, input {cap_ppm.shape}: "
           f"{n_ok}/{CHANNELS * n_frames} frames bit-exact ({t_run:.2f} s wall); "
@@ -514,20 +644,65 @@ def main() -> None:
 
     # -- 13. kernel timings at the main paths' shapes --------------------
     rows, n_ext = blocks.shape
+    lib = build.library()
+    stream_ptr = torch.cuda.current_stream().cuda_stream
+    a, p, c = (torch.empty(blocks.shape, dtype=t, device=dev)
+               for t in (torch.complex64, torch.float32, torch.float32))
+
+    def dense_r(r):                     # dense K1 at r outputs a thread
+        build.check(lib.gwt_sync_stats_r(
+            torch.view_as_real(blocks).data_ptr(), torch.view_as_real(a).data_ptr(),
+            p.data_ptr(), c.data_ptr(), rows, n_ext, r, stream_ptr), "sync_stats_r")
+
+    k1_r = [(r, round(cuda_ms(lambda: dense_r(r), 20), 4)) for r in (8, 16, 8, 16)]
+    del a, p, c
     k1_ms = cuda_ms(lambda: k1.sync_stats(blocks), 20)
     k1_plain = cuda_ms(lambda: k1.sync_stats_plain(blocks), 3)
     k1_bound = {"bytes": rows * n_ext * (8 + 16) / HBM_BYTES_PER_S * 1e3,
                 "operations": rows * n_ext * K1_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
+    # the fused detector as the executor calls it, beside the PR 2 path
+    # it replaces (dense K1 and the torch glue: top-k, cats, elementwise)
+    det_args = (MAX_FRAMES, thr, mp, HALO_LEFT, HALO_LEFT + BLOCK)
 
-    n_slots = CHANNELS * TIME_BLOCKS * MAX_FRAMES
-    pay, sig = llrs(n_slots, payload_steps, "random", 1), llrs(n_slots, 24, "random", 2)
+    def dense_and_glue():
+        a, _, c = k1.sync_stats(blocks)
+        return k1.detect_from_stats(a, c, *det_args)
+
+    det_buf = k1._detect_buffer(rows, n_ext, MAX_FRAMES, dev)
+    k1d_ms = cuda_ms(lambda: k1._detect_launch(blocks, *det_args, det_buf), 20)
+    k1d_call = cuda_ms(lambda: k1.sync_detect(blocks, *det_args), 20)
+    k1d_glue = cuda_ms(dense_and_glue, 10)
+    k1d_plain = cuda_ms(lambda: k1.sync_detect_plain(blocks, *det_args), 3)
+    k1d_bound = {"bytes": (rows * n_ext * 8 + rows * MAX_FRAMES * (4 + 1 + 8 + 4))
+                 / HBM_BYTES_PER_S * 1e3,
+                 "operations": rows * n_ext * K1_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
+
+    # K2 on the step's payload (pay) and SIGNAL (sig) trellises
     k2_pay, k2_sig = (cuda_ms(lambda: k2.viterbi_decode(v), 20) for v in (pay, sig))
     k2_pay_plain, k2_sig_plain = (cuda_ms(lambda: k2.viterbi_decode_plain(v), 2)
                                   for v in (pay, sig))
     k2_ms, k2_plain = k2_pay + k2_sig, k2_pay_plain + k2_sig_plain
+    k2m_lanes = [(lanes, round(cuda_ms(lambda: k2._decode_segments(
+        [pay, sig], [True, True], lanes), 20), 4)) for lanes in (8, 16, 8, 16)]
+    k2m_ms = cuda_ms(lambda: k2.viterbi_decode_many([pay, sig], [True, True]), 20)
+    k2m_plain = cuda_ms(lambda: k2.viterbi_decode_many_plain([pay, sig], [True, True]), 2)
     k2_steps = n_slots * (payload_steps + 24)
     k2_bound = {"bytes": k2_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
                 "operations": k2_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    k2_floor = payload_steps * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3)
+    print(f"K1 dense on ({rows}, {n_ext}), [outputs a thread, ms] in turns: "
+          f"{k1_r} ms; fused detector, both launches "
+          f"{k1d_ms:.4f} ms, the wrapper's whole call {k1d_call:.4f} ms, against dense K1 + "
+          f"torch glue {k1d_glue:.4f} ms (bound {max(k1d_bound.values()):.4f}"
+          f" ms: bytes {k1d_bound['bytes']:.4f}, operations {k1d_bound['operations']:.4f}); "
+          f"K2 one launch for ({n_slots}, {payload_steps}) + ({n_slots}, 24), [lanes a frame, "
+          f"ms] in turns: {k2m_lanes}, "
+          f"two one-segment launches {k2_ms:.4f} ms; chain floor "
+          f"({K2_ACS_CYCLES} + {K2_TRACEBACK_CYCLES} cycles a step x {payload_steps} steps at "
+          f"{sm_mhz:.0f} MHz) {k2_floor:.4f} ms (CUDA events; {card})")
 
     # K3 on the 4-channel stream, 65 taps; library: cuDNN conv1d on the
     # re/im rows (laid out outside the timed call) with flipped taps
@@ -581,9 +756,14 @@ def main() -> None:
     out = []
     for name, src, replaces, launches, err, ms, plain, bound, lib in (
             ("sync_stats", "sync_stats.cu", "pallas_sync.py:104",
-             main_launches["sync_stats"], k1_err, k1_ms, k1_plain, k1_bound, None),
+             stats_launches["sync_stats"], k1_err, k1_ms, k1_plain, k1_bound, None),
+            ("sync_detect", "sync_stats.cu", "pallas_sync.py:104",
+             main_launches["sync_detect"], k1d_err, k1d_ms, k1d_plain, k1d_bound, None),
             ("viterbi_decode", "viterbi_acs.cu", "pallas_viterbi.py:125",
-             main_launches["viterbi_decode"], float(k2_err), k2_ms, k2_plain, k2_bound, None),
+             vit_launches["viterbi_decode"], float(k2_err), k2_ms, k2_plain, k2_bound, None),
+            ("viterbi_decode_many", "viterbi_acs.cu", "pallas_viterbi.py:125",
+             main_launches["viterbi_decode_many"], float(k2_err), k2m_ms, k2m_plain, k2_bound,
+             None),
             ("fir_filter", "fir.cu", "pallas_fir.py:84", fir_launches["fir_filter"],
              k3_err, k3_ms, k3_plain, k3_bound, k3_lib),
             ("polyphase_resample", "fir.cu", "pallas_fir.py:179",
@@ -593,10 +773,12 @@ def main() -> None:
                     "replaces": f"{jax_ops}/{replaces}", "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
                     "bound_by": by, "library_ms": lib})
-    print(f"per executor step: sync_stats on ({rows}, {n_ext}): {k1_ms:.4f} ms, plain "
-          f"{k1_plain:.3f} ms; viterbi_decode on ({n_slots}, {payload_steps}): "
-          f"{k2_pay:.4f} ms, plain {k2_pay_plain:.2f} ms, and on ({n_slots}, 24): "
-          f"{k2_sig:.4f} ms, plain {k2_sig_plain:.2f} ms (CUDA events; {card})")
+    print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
+          f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
+          f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "
+          f"sync_stats {k1_ms:.4f} ms, plain {k1_plain:.3f} ms; viterbi_decode "
+          f"{k2_pay:.4f} + {k2_sig:.4f} ms, plain {k2_pay_plain:.2f} + {k2_sig_plain:.2f} ms "
+          f"(CUDA events; {card})")
     print(f"fir_filter on {tuple(fir_x.shape)} x {FIR_TAPS} taps: {k3_ms:.4f} ms, plain "
           f"{k3_plain:.3f} ms, conv1d {k3_lib:.4f} ms; polyphase_resample 3/4 on "
           f"{tuple(k4_x.shape)} -> {n_out4}: {k4_ms:.4f} ms, plain {k4_plain:.3f} ms, "

@@ -2,8 +2,10 @@
 hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version:
 
-    sync_stats   fused STF detector statistics (replaces ops/pallas_sync.py)
-    viterbi_acs  K=7 Viterbi ACS + traceback (replaces ops/pallas_viterbi.py)
+    sync_stats   STF detector: dense statistics and the fused detector
+                 (replace ops/pallas_sync.py and the detection around it)
+    viterbi_acs  K=7 Viterbi ACS + traceback, several trellises a launch
+                 (replaces ops/pallas_viterbi.py)
     fir          causal FIR (K3) and polyphase resampler (K4) (replace
                  ops/pallas_fir.py)
 

@@ -9,9 +9,9 @@ parallel/executor.py ``StreamExecutor``:
   * each step cuts ``time_shards`` overlapping extended blocks (HALO_LEFT
     + block + halo_right samples) per channel out of the resident stream
     on the device, decodes the wire format, runs sync over every block in
-    one batch (one sync-statistics launch) and decodes all B x K candidate
-    frames as one flat batch (one Viterbi launch each for SIGNAL and the
-    payloads);
+    one batch (one fused-detector call) and decodes all B x K candidate
+    frames as one flat batch (one Viterbi launch for SIGNAL and the
+    payloads together);
   * detection only claims edges inside each block's owned
     [HALO_LEFT, HALO_LEFT + block) region, so every frame belongs to
     exactly one block, and the host dedups records by (channel,

@@ -70,7 +70,6 @@ def decode_spectra(ltf1: torch.Tensor, ltf2: torch.Tensor, spectra: torch.Tensor
     SIGNAL+data spectra (..., 1+n_sym, 64)."""
     h0 = equalizer.ls_estimate(ltf1, ltf2)
     eq, csi = equalizer.equalize(spectra, h0, symbol_index0=0, algo=algo, mcs=plan.mcs)
-    sig = signal_field.decode(eq[..., 0, :])
     data_eq = eq[..., 1:, :]
     data_csi = csi[..., 1:, :]
     llr = mapping.demap_llr(
@@ -80,8 +79,12 @@ def decode_spectra(ltf1: torch.Tensor, ltf2: torch.Tensor, spectra: torch.Tensor
     mother = bitops.depuncture(deint, plan.rate, 2 * plan.n_data_bits)
     # The trellis terminates (state 0) right after the 6 zero tail bits;
     # scrambled PAD bits continue past it, so decode only through the tail.
+    # SIGNAL's 24-step trellis and the payload's are decoded together.
     n_info = params.N_SERVICE_BITS + 8 * plan.psdu_len + params.N_TAIL_BITS
-    decoded = viterbi.decode(mother[..., : 2 * n_info], n_info, terminated=True)
+    sig_raw, decoded = viterbi.decode_many(
+        [signal_field.signal_llrs(eq[..., 0, :]), mother[..., : 2 * n_info]],
+        [24, n_info], [True, True])
+    sig = signal_field.parse(sig_raw)
     descrambled = bitops.descramble(decoded)
     psdu_bits = descrambled[..., params.N_SERVICE_BITS: params.N_SERVICE_BITS + 8 * plan.psdu_len]
     return RxResult(psdu=bitops.bits_to_bytes(psdu_bits), sig=sig,

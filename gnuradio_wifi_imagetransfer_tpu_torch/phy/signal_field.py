@@ -36,12 +36,16 @@ def encode(mcs: int, length: torch.Tensor) -> torch.Tensor:
     return mapping.map_bits(bitops.interleave(coded, _BPSK_MCS), _BPSK_MCS)
 
 
-def decode(symbols: torch.Tensor) -> dict:
-    """Decode equalized SIGNAL symbols (..., 48) -> dict of fields:
-    rate_idx (MCS 0..7, or -1 for invalid RATE bits), length (PSDU bytes),
-    parity_ok (even parity and zero tail) and raw_bits."""
-    llr = mapping.demap_llr(symbols, _BPSK_MCS)                  # (..., 48)
-    raw = viterbi.decode(bitops.deinterleave(llr, _BPSK_MCS), 24, terminated=True)
+def signal_llrs(symbols: torch.Tensor) -> torch.Tensor:
+    """Equalized SIGNAL symbols (..., 48) -> the (..., 48) deinterleaved
+    mother-code LLRs of its 24-step terminated trellis."""
+    return bitops.deinterleave(mapping.demap_llr(symbols, _BPSK_MCS), _BPSK_MCS)
+
+
+def parse(raw: torch.Tensor) -> dict:
+    """Decoded SIGNAL bits (..., 24) -> dict of fields: rate_idx (MCS
+    0..7, or -1 for invalid RATE bits), length (PSDU bytes), parity_ok
+    (even parity and zero tail) and raw_bits."""
     rate_bits = raw[..., 0:4].long()
     table = torch.as_tensor(params.MCS_RATE_BITS, device=raw.device).long()   # (8, 4)
     match = (rate_bits[..., None, :] == table).all(dim=-1)       # (..., 8)
@@ -56,3 +60,9 @@ def decode(symbols: torch.Tensor) -> dict:
         "parity_ok": parity_ok & tail_ok,
         "raw_bits": raw,
     }
+
+
+def decode(symbols: torch.Tensor) -> dict:
+    """Decode equalized SIGNAL symbols (..., 48) -> dict of fields (see
+    ``parse``)."""
+    return parse(viterbi.decode(signal_llrs(symbols), 24, terminated=True))

@@ -51,11 +51,6 @@ def sync_stats(x: torch.Tensor):
     return _stats.sync_stats(x)
 
 
-def _delay(v: torch.Tensor, k: int) -> torch.Tensor:
-    """v delayed by k samples along the last axis, False/0 shifted in."""
-    return torch.cat([v.new_zeros(v.shape[:-1] + (k,)), v[..., : v.shape[-1] - k]], dim=-1)
-
-
 def detect(
     x: torch.Tensor,
     max_frames: int,
@@ -67,36 +62,15 @@ def detect(
 
     x: (..., N) complex64. search_lo/search_hi bound the edge positions
     considered (the executor ignores its halos so each frame belongs to
-    exactly one block). Returns (..., K) candidate fields.
+    exactly one block). Returns (..., K) candidate fields, the first K
+    rising edges of a plateau of ``cfg.min_plateau`` samples above
+    ``cfg.sync_threshold``, from ``ops.sync_stats.sync_detect`` (the fused
+    detector kernels for CUDA tensors, ``sync_detect_plain`` for CPU
+    tensors).
     """
-    n = x.shape[-1]
-    a, p, c = sync_stats(x)
-    above = c >= cfg.sync_threshold
-    plateau = above                   # >= min_plateau consecutive samples ending at n
-    for k in range(1, cfg.min_plateau):
-        plateau = plateau & _delay(above, k)
-    edge = plateau & ~_delay(plateau, 1)
-    idx = torch.arange(n, device=x.device)
-    if search_hi is None:
-        search_hi = n
-    edge = edge & (idx >= search_lo) & (idx < search_hi)
-    # first K edges == the K largest values of -index among edges; non-edges
-    # hold the sentinel -n, the only value that can tie
-    key = torch.where(edge, -idx, torch.full_like(idx, -n))
-    neg_starts = torch.topk(key, max_frames, dim=-1, sorted=True).values
-    starts = -neg_starts
-    valid = starts < n
-    starts_c = torch.clamp(starts, max=n - 1)
-    # the edge is the plateau END of the first min_plateau run; the trigger
-    # sample (first above threshold) is min_plateau-1 earlier
-    trigger = torch.clamp(starts_c - (cfg.min_plateau - 1), min=0)
-    cfo = torch.angle(torch.gather(a, -1, trigger)) / 16.0
-    return FrameCandidates(
-        starts=torch.where(valid, trigger, 0).to(torch.int32),
-        valid=valid,
-        cfo=torch.where(valid, cfo, 0.0).to(torch.float32),
-        ratio=torch.gather(c, -1, trigger).to(torch.float32),
-    )
+    starts, valid, cfo, ratio = _stats.sync_detect(
+        x, max_frames, cfg.sync_threshold, cfg.min_plateau, search_lo, search_hi)
+    return FrameCandidates(starts=starts, valid=valid, cfo=cfo, ratio=ratio)
 
 
 def extract(x: torch.Tensor, starts: torch.Tensor, wlen: int) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 PyTorch port of the JAX package's phy/viterbi.py. The 64-state
 add-compare-select recursion and the traceback run in one call of
-``ops.viterbi_acs.viterbi_decode``: the CUDA kernel for CUDA tensors, its
-plain PyTorch version (the JAX XLA path, op for op) for CPU tensors. Both
-are bit-exact against the JAX package.
+``ops.viterbi_acs.viterbi_decode`` (``decode``) or, for several trellises
+at once, ``viterbi_decode_many`` (``decode_many``): the CUDA kernel for
+CUDA tensors, its plain PyTorch version (the JAX XLA path, op for op) for
+CPU tensors. Both are bit-exact against the JAX package.
 
 Metric convention: LLR pairs (llr_a, llr_b) per trellis step with llr > 0
 favouring coded bit 1; the decoder maximizes sum_i llr_i * coded_bit_i, so
@@ -30,3 +31,13 @@ def decode(llrs: torch.Tensor, n_bits: int, terminated: bool = True) -> torch.Te
     x = llrs.reshape(-1, n_bits, 2).to(torch.float32).contiguous()
     bits = viterbi_acs.viterbi_decode(x, terminated)
     return bits.reshape(batch_shape + (n_bits,))
+
+
+def decode_many(llrs, n_bits, terminated) -> list[torch.Tensor]:
+    """``decode`` on several LLR tensors at once (one kernel launch on the
+    card): llrs[i] (..., 2*n_bits[i]) with flag terminated[i] ->
+    [(..., n_bits[i]) uint8]."""
+    segs = [v.reshape(-1, nb, 2).to(torch.float32).contiguous()
+            for v, nb in zip(llrs, n_bits, strict=True)]
+    bits = viterbi_acs.viterbi_decode_many(segs, terminated)
+    return [b.reshape(v.shape[:-1] + (nb,)) for b, v, nb in zip(bits, llrs, n_bits)]

@@ -34,7 +34,7 @@ def _stream(rows, n, seed, amp=0.5, silent=(0, 0)):
 
 
 @pytest.mark.parametrize("rows,n,amp", [(1, 263_840, 0.5), (64, 4096, 0.5),
-                                        (3, 5000, 1.0), (2, 1000, 0.5)])
+                                        (3, 5000, 1.0), (2, 1000, 0.5), (3, 4999, 0.5)])
 def test_sync_stats_kernel_matches_plain(dev, rows, n, amp):
     x = _stream(rows, n, seed=rows, amp=amp, silent=(n // 3, n // 3 + 600))
     want = [v.to(dev) for v in k1.sync_stats_plain(x.to(dev))]
@@ -51,6 +51,94 @@ def test_sync_stats_kernel_matches_plain(dev, rows, n, amp):
     quiet = slice(n // 3 + 64, n // 3 + 600)
     assert torch.count_nonzero(a[:, quiet]) == 0
     assert torch.count_nonzero(p[:, quiet]) == 0
+
+
+def _burst_rows(n, edges_per_row, min_plateau=2, seed=0):
+    """Rows of faint noise with 48-sample bursts of a unit-magnitude
+    16-periodic signal, placed so that each burst's rising detection edge
+    falls at the given index (c first reaches 0.56 36 samples into a
+    burst: 21/37 there, 20/36 a sample before)."""
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.standard_normal((len(edges_per_row), n))
+                + 1j * rng.standard_normal((len(edges_per_row), n)))
+    for row, edges in enumerate(edges_per_row):
+        for e in edges:
+            p = e - 36 - (min_plateau - 1)
+            theta = rng.uniform(0, 2 * np.pi, 16)
+            x[row, p: p + 48] = np.exp(1j * theta[np.arange(48) % 16])
+    return torch.from_numpy(x.astype(np.complex64))
+
+
+# edges on the detector's tile boundaries (992, 1984, 2976) and the dense
+# pass's (1024), more than K in one tile (every 112 samples from 2100),
+# near the row's end, and none at all
+EDGES = [[991, 1984], [992, 1985], [993, 1983], [1023, 2976], [1024], [1025],
+         list(range(2100, 3072, 112)) + [5000], [7000], []]
+
+
+def _detect_both(x, k, mp, lo, hi):
+    want = k1.sync_detect_plain(x, k, 0.56, mp, lo, hi)
+    before = k1.sync_detect.launches
+    got = k1.sync_detect(x, k, 0.56, mp, lo, hi)
+    torch.cuda.synchronize()
+    assert k1.sync_detect.launches == before + 1
+    return got, want
+
+
+def _assert_candidates(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[3], want[3], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("mp", [1, 2, 3])
+def test_sync_detect_kernel_at_tile_boundaries(dev, mp, k):
+    x = _burst_rows(7200, EDGES, mp, seed=mp).to(dev)
+    got, want = _detect_both(x, k, mp, 0, None)
+    valid = want[1].cpu()
+    edges = [sorted(r)[:k] for r in EDGES]
+    assert valid.sum(-1).tolist() == [len(r) for r in edges]
+    for row, r in enumerate(edges):           # the bursts land where designed
+        assert want[0][row, : len(r)].tolist() == [e - (mp - 1) for e in r]
+    _assert_candidates(got, want)
+    # the dense kernel with the plain glue gives the very same bits
+    a, _, c = k1.sync_stats(x)
+    glue = k1.detect_from_stats(a, c, k, 0.56, mp, 0, None)
+    for g, w in zip(got, glue):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lo,hi", [(992, None), (993, None), (0, 992), (0, 993),
+                                   (991, 994), (1024, None), (1025, None), (0, 1024),
+                                   (1023, 1026), (2976, 7000), (2977, 7001), (7200, 7200)])
+def test_sync_detect_kernel_search_bounds(dev, lo, hi):
+    x = _burst_rows(7200, EDGES, seed=9).to(dev)
+    got, want = _detect_both(x, 4, 2, lo, hi)
+    _assert_candidates(got, want)
+
+
+@pytest.mark.parametrize("rows,n", [(64, 263_840), (1, 32_768), (3, 1000), (2, 4001)])
+def test_sync_detect_kernel_on_noise_and_bursts(dev, rows, n):
+    """Random edges in noise, leading dims kept; a row shorter than a
+    tile; an odd row length (rows not 16-byte aligned)."""
+    rng = np.random.default_rng(rows)
+    edges = [sorted(rng.choice(np.arange(200, n - 100, 120), min(6, n // 300),
+                               replace=False).tolist()) for _ in range(rows)]
+    x = _burst_rows(n, edges, seed=rows).to(dev)
+    got, want = _detect_both(x.reshape((rows, 1, n)), 4, 2, 256, n - 300)
+    assert got[0].shape == (rows, 1, 4)
+    _assert_candidates(got, want)
+
+
+def test_sync_detect_tiling_model_matches_the_kernel(dev):
+    x = _burst_rows(7200, EDGES, seed=4)
+    starts = k1.sync_detect(x.to(dev), 4, 0.56, 2)[0].cpu()
+    a, _, c = k1.sync_stats_plain(x)
+    edge = (c >= 0.56) & (k1._delay(c >= 0.56, 1))
+    edge = edge & ~k1._delay(edge, 1)
+    tiled = k1.first_edges_tiled(edge, 4)
+    assert torch.equal(torch.where(tiled < 7200, tiled - 1, 0).to(torch.int32), starts)
 
 
 def _llrs(b, n, seed, kind):
@@ -77,6 +165,40 @@ def test_viterbi_kernel_matches_plain(dev, b, n, kind, terminated):
     torch.cuda.synchronize()
     assert k2.viterbi_decode.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("segs", [[(256, 422, "random", True), (256, 24, "tied", True)],
+                                  [(5, 1000, "punctured", False), (3, 24, "random", True),
+                                   (0, 30, "random", True)],
+                                  [(7, 3000, "tied", True), (2, 17, "punctured", False),
+                                   (9, 422, "random", False)]])
+def test_viterbi_many_kernel_matches_plain(dev, segs, lanes):
+    llrs = [_llrs(b, n, seed=b * n + 1, kind=kind).to(dev) for b, n, kind, _ in segs]
+    flags = [t for *_, t in segs]
+    want = k2.viterbi_decode_many_plain(llrs, flags)
+    before = k2.viterbi_decode_many.launches
+    if lanes == k2.LANES_PER_FRAME:
+        got = k2.viterbi_decode_many(llrs, flags)
+        assert k2.viterbi_decode_many.launches == before + 1
+    else:                    # the other split, kept to compare the two
+        got = k2._decode_segments(llrs, flags, lanes)[0]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_viterbi_kernel_unaligned_llrs(dev):
+    """A view that starts 8 bytes past a 16-byte boundary."""
+    llr = _llrs(6, 421, seed=5, kind="tied").to(dev)[1:]
+    assert llr.data_ptr() % 16 == 8
+    assert torch.equal(k2.viterbi_decode(llr, False), k2.viterbi_decode_plain(llr, False))
+
+
+def test_viterbi_kernel_long_trellis(dev):
+    """A trellis too long for 4 frames a warp: fewer frames share one."""
+    llr = _llrs(5, 9000, seed=3, kind="random").to(dev)
+    assert torch.equal(k2.viterbi_decode(llr, True), k2.viterbi_decode_plain(llr, True))
 
 
 def _rand(shape, seed, cplx):
@@ -147,6 +269,18 @@ def test_resample_kernel_past_the_int32_index_range(dev):
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(TypeError):
         k1.sync_stats(torch.zeros(10, device=dev))
+    x = torch.zeros(2, 4096, dtype=torch.complex64, device=dev)
+    for mp in (0, k1.MAX_PLATEAU + 1):
+        with pytest.raises(ValueError):
+            k1.sync_detect(x, 4, 0.56, mp)
+    with pytest.raises(TypeError):
+        k1.sync_detect(x.to(torch.complex128), 4, 0.56, 2)
+    with pytest.raises(ValueError):
+        k1.sync_detect(x.t(), 4, 0.56, 2)
+    with pytest.raises(TypeError):
+        k2.viterbi_decode_many([torch.zeros(2, 5, 2, device=dev, dtype=torch.float64)], [True])
+    with pytest.raises(ValueError):
+        k2.viterbi_decode_many([torch.zeros(2, 2, 5, device=dev).transpose(1, 2)], [True])
     with pytest.raises(ValueError):
         k2.viterbi_decode(torch.zeros(2, 5, 3, device=dev))
     with pytest.raises(TypeError):

@@ -70,3 +70,25 @@ def test_decode_aligned_matches_jax(mcs, start):
     assert got[1].tolist() == [mcs] * 3 and got[3].all()
     np.testing.assert_allclose(got[5], want[5], atol=1e-4, rtol=0)   # eq_symbols
     np.testing.assert_allclose(got[6], want[6], atol=1e-4, rtol=0)   # csi
+
+
+@pytest.mark.parametrize("mcs", range(8))
+def test_signal_llrs_and_parse_match_jax(mcs):
+    """SIGNAL decoding in its two halves (demap + deinterleave, then the
+    fields of the decoded bits) equals the one-call decode and JAX's."""
+    from gnuradio_wifi_imagetransfer_tpu.phy import signal_field as jsig
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import signal_field, viterbi
+
+    rng = np.random.default_rng(mcs)
+    length = np.array([1, 31, 500, 4095], np.int32)
+    sym = np.asarray(jsig.encode(mcs, jnp.asarray(length)))
+    sym = (sym + 0.4 * (rng.standard_normal(sym.shape) + 1j * rng.standard_normal(sym.shape))
+           ).astype(np.complex64)
+    want = jsig.decode(jnp.asarray(sym))
+    s = torch.from_numpy(sym)
+    got = signal_field.parse(viterbi.decode(signal_field.signal_llrs(s), 24))
+    one = signal_field.decode(s)
+    for key in ("rate_idx", "length", "parity_ok", "raw_bits"):
+        assert torch.equal(got[key], one[key])
+        assert np.array_equal(got[key].numpy(), np.asarray(want[key]).astype(
+            got[key].numpy().dtype))

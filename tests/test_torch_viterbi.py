@@ -9,6 +9,7 @@ import torch
 from gnuradio_wifi_imagetransfer_tpu.ops import pallas_viterbi
 from gnuradio_wifi_imagetransfer_tpu.phy import bits as jbits
 from gnuradio_wifi_imagetransfer_tpu.phy import viterbi as jviterbi
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import viterbi
 
 torch.set_num_threads(2)
@@ -60,3 +61,31 @@ def test_decode_matches_pallas_interpret():
     want = np.asarray(pallas_viterbi.decode(jnp.asarray(llr), 24, interpret=True))
     got = viterbi.decode(torch.from_numpy(llr), 24, terminated=True)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("terminated", [(True, True), (True, False), (False, True, False)])
+def test_decode_many_matches_separate_decodes_and_jax(terminated):
+    """Mixed lengths in one call (SIGNAL's 24 steps beside longer
+    trellises): each segment equals its own decode and the JAX decode."""
+    rng = np.random.default_rng(len(terminated) + sum(terminated))
+    lengths = [24, N_BITS, 61][: len(terminated)]
+    llrs = [rng.integers(-2, 3, (FRAMES - i, 2 * nb)).astype(np.float32)
+            for i, nb in enumerate(lengths)]
+    got = viterbi.decode_many([torch.from_numpy(v) for v in llrs], lengths, terminated)
+    for g, v, nb, t in zip(got, llrs, lengths, terminated):
+        assert g.shape == (v.shape[0], nb) and g.dtype == torch.uint8
+        assert torch.equal(g, viterbi.decode(torch.from_numpy(v), nb, terminated=t))
+        want = np.asarray(jviterbi.decode(jnp.asarray(v), nb, terminated=t))
+        assert np.array_equal(g.numpy(), want)
+
+
+def test_viterbi_decode_many_plain_is_per_segment():
+    rng = np.random.default_rng(3)
+    segs = [torch.from_numpy((3 * rng.standard_normal((b, n, 2))).astype(np.float32))
+            for b, n in ((4, 30), (1, 7), (0, 5))]
+    flags = [True, False, True]
+    got = viterbi_acs.viterbi_decode_many(segs, flags)       # CPU: the plain version
+    want = [viterbi_acs.viterbi_decode_plain(v, t) for v, t in zip(segs, flags)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        viterbi_acs.viterbi_decode_many(segs, flags[:2])
