@@ -23,7 +23,7 @@ holds each hand-written kernel against its plain PyTorch version:
   4. checks the Viterbi kernel (K2) bit-exact against its plain version on
      256 x 422 and 256 x 24 LLRs that are random, punctured and tied, one
      segment a launch and both segments in one launch
-     (``viterbi_decode_many``, 8 and 16 lanes a frame);
+     (``viterbi_decode_many``);
   5. checks the FIR kernel (K3) against its plain version (atol 2e-4): (2,
      300) with 5, 48, 129 and 200 taps, real and complex; (4, 4 194 304)
      complex with 65 taps; rows kept apart (batch isolation);
@@ -54,10 +54,10 @@ holds each hand-written kernel against its plain PyTorch version:
      decim2, ppm40 and general 3/4 at 2**22 padded outputs, left pad 256
      (the JAX bench's shape), in input Msamples/s;
  13. times each kernel (CUDA events) beside its plain version and bound:
-     dense K1 at 8 and 16 outputs a thread, the fused detector and dense
-     K1 plus the torch glue it replaces, the segmented K2 at 8 and 16
-     lanes a frame and as two one-segment launches, K2's chain floor; then
-     prints one JSON line of kernel timings, bounds and launch counts.
+     dense K1, the fused detector and dense K1 plus the torch glue it
+     replaces, the segmented K2 and the same trellises as two one-segment
+     launches, K2's chain floor; then prints one JSON line of kernel
+     timings, bounds and launch counts.
 
 Launch counts are set to 0 just before each main-path run (7 to 11) and
 read just after; launches made to compare or time a kernel do not count.
@@ -99,12 +99,19 @@ FIR_TAPS = 65
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# float32 operations per sample of the sync statistics: m (6), |x|^2 (3),
-# 48-term complex window (94), 64-term window (63), |a| / p (5)
-K1_OPS_PER_SAMPLE = 171
-# per frame and trellis step of the Viterbi ACS: 64 states x 2 edges x
-# (2 mul + 2 add) + 64 compare/select + 63 max + 64 subtract
-K2_OPS_PER_STEP = 64 * 2 * 4 + 64 + 63 + 64
+# float32 operations per sample of the sync statistics in the kernels'
+# addition-only form (csrc/sync_stats.cu, 8 outputs a thread): m (6),
+# |x|^2 (3), the window sums of 8 outputs (the shared cores of 41 complex
+# and 57 real terms 2 x 40 + 56, the suffix and running sums 2 x 3 x 7,
+# 2 adds an output for each of the 3 sums 48: 226 for 8), |a| / p (5)
+K1_OPS_PER_SAMPLE = 6 + 3 + 226 / 8 + 5
+# the fused detector adds the threshold compare
+K1_DETECT_OPS_PER_SAMPLE = K1_OPS_PER_SAMPLE + 1
+# per frame and trellis step of the Viterbi ACS in the kernel's form (the
+# code is linear, so a step has 4 distinct gains): 4 gains x (2 mul + 1
+# add) + 64 states x 2 edges x 1 add + 64 compare/select + 63 max + 64
+# subtract
+K2_OPS_PER_STEP = 4 * 3 + 64 * 2 + 64 + 63 + 64
 # a real tap on a complex sample: 2 multiplies + 2 adds
 OPS_PER_COMPLEX_TAP = 4
 # K2's chain floor, a design estimate in dependent cycles: an ACS step
@@ -127,12 +134,18 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps runs, after one warm-up."""
+    """Mean device milliseconds of fn() over reps runs, after one warm-up.
+
+    A device sleep of about 20 ms is queued ahead of the timed runs, so
+    the host enqueues them while the device waits: where the host keeps
+    up, the events time the device work and not the host's dispatch of a
+    kernel shorter than its wrapper's call."""
     import torch
 
     fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -405,18 +418,20 @@ def main() -> None:
                       f"viterbi kernel != plain on 256x{steps} {kind} "
                       f"terminated={terminated}: {(got != want).sum().item()} bits differ")
         print(f"K2 viterbi 256x{steps} random/punctured/tied, terminated and not: bit-exact")
+    k2m_err = 0
     for kind in ("random", "punctured", "tied"):
         for terminated in (True, False):
             segs = [llrs(256, payload_steps, kind, seed=7), llrs(256, 24, kind, seed=8)]
             flags = [terminated, not terminated]
             want = k2.viterbi_decode_many_plain(segs, flags)
-            for lanes in (8, 16):
-                got = k2._decode_segments(segs, flags, lanes)[0]
-                check(all(torch.equal(g, w) for g, w in zip(got, want)),
-                      f"viterbi_decode_many != plain on 256x{payload_steps} + 256x24 {kind} "
-                      f"terminated={flags}, {lanes} lanes a frame")
+            got = k2.viterbi_decode_many(segs, flags)
+            k2m_err = max([k2m_err] + [(g.int() - w.int()).abs().max().item()
+                                       for g, w in zip(got, want)])
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"viterbi_decode_many != plain on 256x{payload_steps} + 256x24 {kind} "
+                  f"terminated={flags}")
     print(f"K2 viterbi_decode_many 256x{payload_steps} + 256x24 in one launch, "
-          f"random/punctured/tied, terminated and not, 8 and 16 lanes a frame: bit-exact")
+          f"random/punctured/tied, terminated and not: bit-exact")
 
     # -- 5. K3 against its plain version ---------------------------------
     def rand(shape, seed, cplx):
@@ -644,18 +659,6 @@ def main() -> None:
 
     # -- 13. kernel timings at the main paths' shapes --------------------
     rows, n_ext = blocks.shape
-    lib = build.library()
-    stream_ptr = torch.cuda.current_stream().cuda_stream
-    a, p, c = (torch.empty(blocks.shape, dtype=t, device=dev)
-               for t in (torch.complex64, torch.float32, torch.float32))
-
-    def dense_r(r):                     # dense K1 at r outputs a thread
-        build.check(lib.gwt_sync_stats_r(
-            torch.view_as_real(blocks).data_ptr(), torch.view_as_real(a).data_ptr(),
-            p.data_ptr(), c.data_ptr(), rows, n_ext, r, stream_ptr), "sync_stats_r")
-
-    k1_r = [(r, round(cuda_ms(lambda: dense_r(r), 20), 4)) for r in (8, 16, 8, 16)]
-    del a, p, c
     k1_ms = cuda_ms(lambda: k1.sync_stats(blocks), 20)
     k1_plain = cuda_ms(lambda: k1.sync_stats_plain(blocks), 3)
     k1_bound = {"bytes": rows * n_ext * (8 + 16) / HBM_BYTES_PER_S * 1e3,
@@ -675,15 +678,13 @@ def main() -> None:
     k1d_plain = cuda_ms(lambda: k1.sync_detect_plain(blocks, *det_args), 3)
     k1d_bound = {"bytes": (rows * n_ext * 8 + rows * MAX_FRAMES * (4 + 1 + 8 + 4))
                  / HBM_BYTES_PER_S * 1e3,
-                 "operations": rows * n_ext * K1_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
+                 "operations": rows * n_ext * K1_DETECT_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
 
     # K2 on the step's payload (pay) and SIGNAL (sig) trellises
     k2_pay, k2_sig = (cuda_ms(lambda: k2.viterbi_decode(v), 20) for v in (pay, sig))
     k2_pay_plain, k2_sig_plain = (cuda_ms(lambda: k2.viterbi_decode_plain(v), 2)
                                   for v in (pay, sig))
     k2_ms, k2_plain = k2_pay + k2_sig, k2_pay_plain + k2_sig_plain
-    k2m_lanes = [(lanes, round(cuda_ms(lambda: k2._decode_segments(
-        [pay, sig], [True, True], lanes), 20), 4)) for lanes in (8, 16, 8, 16)]
     k2m_ms = cuda_ms(lambda: k2.viterbi_decode_many([pay, sig], [True, True]), 20)
     k2m_plain = cuda_ms(lambda: k2.viterbi_decode_many_plain([pay, sig], [True, True]), 2)
     k2_steps = n_slots * (payload_steps + 24)
@@ -693,13 +694,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.split()[0])
     k2_floor = payload_steps * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3)
-    print(f"K1 dense on ({rows}, {n_ext}), [outputs a thread, ms] in turns: "
-          f"{k1_r} ms; fused detector, both launches "
-          f"{k1d_ms:.4f} ms, the wrapper's whole call {k1d_call:.4f} ms, against dense K1 + "
-          f"torch glue {k1d_glue:.4f} ms (bound {max(k1d_bound.values()):.4f}"
-          f" ms: bytes {k1d_bound['bytes']:.4f}, operations {k1d_bound['operations']:.4f}); "
-          f"K2 one launch for ({n_slots}, {payload_steps}) + ({n_slots}, 24), [lanes a frame, "
-          f"ms] in turns: {k2m_lanes}, "
+    print(f"K1 on ({rows}, {n_ext}): dense {k1_ms:.4f} ms (bound bytes "
+          f"{k1_bound['bytes']:.4f}, operations {k1_bound['operations']:.4f}); fused detector, "
+          f"both launches {k1d_ms:.4f} ms, the wrapper's whole call {k1d_call:.4f} ms, against "
+          f"dense K1 + torch glue {k1d_glue:.4f} ms (bound bytes {k1d_bound['bytes']:.4f}, "
+          f"operations {k1d_bound['operations']:.4f}); K2 one launch for ({n_slots}, "
+          f"{payload_steps}) + ({n_slots}, 24) {k2m_ms:.4f} ms, "
           f"two one-segment launches {k2_ms:.4f} ms; chain floor "
           f"({K2_ACS_CYCLES} + {K2_TRACEBACK_CYCLES} cycles a step x {payload_steps} steps at "
           f"{sm_mhz:.0f} MHz) {k2_floor:.4f} ms (CUDA events; {card})")
@@ -762,7 +762,7 @@ def main() -> None:
             ("viterbi_decode", "viterbi_acs.cu", "pallas_viterbi.py:125",
              vit_launches["viterbi_decode"], float(k2_err), k2_ms, k2_plain, k2_bound, None),
             ("viterbi_decode_many", "viterbi_acs.cu", "pallas_viterbi.py:125",
-             main_launches["viterbi_decode_many"], float(k2_err), k2m_ms, k2m_plain, k2_bound,
+             main_launches["viterbi_decode_many"], float(k2m_err), k2m_ms, k2m_plain, k2_bound,
              None),
             ("fir_filter", "fir.cu", "pallas_fir.py:84", fir_launches["fir_filter"],
              k3_err, k3_ms, k3_plain, k3_bound, k3_lib),

@@ -23,18 +23,21 @@
 //     plateau and rising-edge flags, and keeps each tile's first K edges
 //     with a[trigger] and c[trigger]; the second, one warp a row, merges
 //     the tiles in order into the first K edges of the row.
-//     Bound: 8 bytes read a sample, 0.040 ms at the step's shape, and
-//     about 171 float32 operations a sample, 0.043 ms at 67 TFLOP/s: the
-//     operations bind, just.
+//     Bound: memory. 8 bytes read a sample, 0.040 ms at the step's shape;
+//     the operations, about 43 float32 a sample in the addition-only form
+//     below (m 6, |x|^2 3, the window sums 28, c 5, the threshold 1), take
+//     0.011 ms at 67 TFLOP/s.
 //
-// Design. One block per (tile, row), all rows in one launch: 1024
+// Design. One block per (tile, row), rows looped past 65 535: 1024
 // outputs a dense tile; 1024 values of c a detector tile, of which the
 // first 32 are look-back for the plateau, so a detector tile owns 992
 // samples. The tile and its history are staged in shared memory with
 // 16-byte loads; m and |x|^2 are formed there once. Each thread then
-// computes R consecutive outputs: it sums once the core of samples that
-// all R windows share, extends it to the right with a forward running
-// addition and covers the samples on the left with a suffix sum. No term
+// computes R = 8 consecutive outputs (16 was slower on the H100: half
+// the threads a block and twice the registers; PERF.md): it sums once
+// the core of samples that all R windows share, extends it to the right
+// with a forward running addition and covers the samples on the left
+// with a suffix sum. No term
 // is ever subtracted, so a window over silence is exactly 0 (a running sum
 // that subtracts leaves residue there, and that residue produced false
 // sync edges: phy/sync.py:95-105 of the JAX package), and each window sum
@@ -52,17 +55,15 @@ constexpr int kTile = 1024;          // outputs per block
 constexpr int kLag = 16;             // STF period
 constexpr int kWinA = 48;            // autocorrelation window
 constexpr int kWinP = 64;            // power window
-constexpr int kDefaultR = 8;         // outputs a thread (8 or 16)
+constexpr int R = 8;                 // outputs a thread
 constexpr int kStatsPre = 64;        // staged history of the dense pass (>= 63)
 constexpr int kLookBack = 32;        // largest min_plateau of the detector
 constexpr int kDetectTile = kTile - kLookBack;   // edges a detector block searches
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int R>
 __host__ __device__ constexpr int pad(int i) { return i + i / R; }     // i >= 0
 
 // floor(c / R) for a compile-time c of either sign, added to c
-template <int R>
 __device__ constexpr int pad_off(int c) {
   return c + (c >= 0 ? c / R : -((-c + R - 1) / R));
 }
@@ -86,7 +87,6 @@ __device__ __forceinline__ void stage(float2* xs, const float2* __restrict__ xr,
 
 // m = x * conj(x[-16]) (real and imaginary part) and |x|^2 of the staged
 // samples, stored at padded indices. m is 0 where x[-16] is not staged.
-template <int R>
 __device__ __forceinline__ void form(const float2* xs, int cnt, float* mr, float* mi,
                                      float* e) {
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
@@ -97,19 +97,18 @@ __device__ __forceinline__ void form(const float2* xs, int cnt, float* mr, float
       re = u.x * v.x + u.y * v.y;
       im = u.y * v.x - u.x * v.y;
     }
-    mr[pad<R>(i)] = re;
-    mi[pad<R>(i)] = im;
-    e[pad<R>(i)] = u.x * u.x + u.y * u.y;
+    mr[pad(i)] = re;
+    mi[pad(i)] = im;
+    e[pad(i)] = u.x * u.x + u.y * u.y;
   }
 }
 
 // a (ar, ai) and p of the R outputs at staged indices i0 .. i0 + R - 1 (i0
 // a multiple of R and >= 63 + 16), by additions only (see the note above).
-template <int R>
 __device__ __forceinline__ void window_sums(const float* mr, const float* mi, const float* e,
                                             int i0, float (&ar)[R], float (&ai)[R],
                                             float (&pp)[R]) {
-  const int base = pad<R>(i0);
+  const int base = pad(i0);
   const float* br = mr + base;
   const float* bi = mi + base;
   const float* be = e + base;
@@ -117,11 +116,11 @@ __device__ __forceinline__ void window_sums(const float* mr, const float* mi, co
   float cr = 0.f, ci = 0.f, cp = 0.f;
 #pragma unroll
   for (int c = R - kWinA; c <= 0; ++c) {
-    cr += br[pad_off<R>(c)];
-    ci += bi[pad_off<R>(c)];
+    cr += br[pad_off(c)];
+    ci += bi[pad_off(c)];
   }
 #pragma unroll
-  for (int c = R - kWinP; c <= 0; ++c) cp += be[pad_off<R>(c)];
+  for (int c = R - kWinP; c <= 0; ++c) cp += be[pad_off(c)];
   // output r also takes r-47 .. R-49 (resp. r-63 .. R-65) on the left:
   // suffix sums, built from r = R-1 (empty) down
   float sr[R], si[R], sp[R];
@@ -130,18 +129,18 @@ __device__ __forceinline__ void window_sums(const float* mr, const float* mi, co
   sp[R - 1] = 0.f;
 #pragma unroll
   for (int r = R - 2; r >= 0; --r) {
-    sr[r] = br[pad_off<R>(r - (kWinA - 1))] + sr[r + 1];
-    si[r] = bi[pad_off<R>(r - (kWinA - 1))] + si[r + 1];
-    sp[r] = be[pad_off<R>(r - (kWinP - 1))] + sp[r + 1];
+    sr[r] = br[pad_off(r - (kWinA - 1))] + sr[r + 1];
+    si[r] = bi[pad_off(r - (kWinA - 1))] + si[r + 1];
+    sp[r] = be[pad_off(r - (kWinP - 1))] + sp[r + 1];
   }
   // ... and 1 .. r on the right: a running addition
   float er = 0.f, ei = 0.f, ep = 0.f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r > 0) {
-      er += br[pad_off<R>(r)];
-      ei += bi[pad_off<R>(r)];
-      ep += be[pad_off<R>(r)];
+      er += br[pad_off(r)];
+      ei += bi[pad_off(r)];
+      ep += be[pad_off(r)];
     }
     ar[r] = (sr[r] + cr) + er;
     ai[r] = (si[r] + ci) + ei;
@@ -153,15 +152,14 @@ __device__ __forceinline__ float ratio(float ar, float ai, float pp) {
   return sqrtf(ar * ar + ai * ai) / fmaxf(pp, 1e-12f);
 }
 
-template <int R>
 __global__ void __launch_bounds__(kTile / R)
 sync_stats_kernel(const float2* __restrict__ x, float2* __restrict__ a,
                   float* __restrict__ p, float* __restrict__ c, int64_t rows, int64_t n,
                   bool vec) {
   constexpr int kStaged = kStatsPre + kTile;
-  constexpr int kXs = kStaged > pad<R>(kTile) ? kStaged : pad<R>(kTile);
+  constexpr int kXs = kStaged > pad(kTile) ? kStaged : pad(kTile);
   __shared__ __align__(16) float2 xs[kXs];          // staged x, then the a outputs
-  __shared__ float mr[pad<R>(kStaged)], mi[pad<R>(kStaged)], e[pad<R>(kStaged)];
+  __shared__ float mr[pad(kStaged)], mi[pad(kStaged)], e[pad(kStaged)];
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int t = threadIdx.x;
 
@@ -169,14 +167,14 @@ sync_stats_kernel(const float2* __restrict__ x, float2* __restrict__ a,
     __syncthreads();                         // previous row's outputs copied out
     stage(xs, x + row * n, n0 - kStatsPre, kStaged, n, vec);
     __syncthreads();
-    form<R>(xs, kStaged, mr, mi, e);
+    form(xs, kStaged, mr, mi, e);
     __syncthreads();
     float ar[R], ai[R], pp[R];
-    window_sums<R>(mr, mi, e, kStatsPre + t * R, ar, ai, pp);
+    window_sums(mr, mi, e, kStatsPre + t * R, ar, ai, pp);
     __syncthreads();                         // every thread has read mr, mi, e
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int j = pad<R>(t * R + r);
+      const int j = pad(t * R + r);
       xs[j] = make_float2(ar[r], ai[r]);
       mr[j] = pp[r];
       mi[j] = ratio(ar[r], ai[r], pp[r]);
@@ -186,9 +184,9 @@ sync_stats_kernel(const float2* __restrict__ x, float2* __restrict__ a,
       const int64_t k = n0 + j;
       if (k >= n) break;
       const int64_t o = row * n + k;
-      a[o] = xs[pad<R>(j)];
-      p[o] = mr[pad<R>(j)];
-      c[o] = mi[pad<R>(j)];
+      a[o] = xs[pad(j)];
+      p[o] = mr[pad(j)];
+      c[o] = mi[pad(j)];
     }
   }
 }
@@ -223,83 +221,82 @@ __host__ __device__ inline DetectScratch carve(void* base, int64_t rows, int64_t
 // rising-edge words of the tile's 992 samples n0 .. n0+991 by shifts and
 // ANDs (the 32 samples of look-back cover min_plateau <= 32), masks them
 // to the search range and keeps the first K edges with prefix popcounts.
-template <int R>
 __global__ void __launch_bounds__(kTile / R)
-sync_detect_kernel(const float2* __restrict__ x, int64_t n, float thr, int mp,
+sync_detect_kernel(const float2* __restrict__ x, int64_t rows, int64_t n, float thr, int mp,
                    int64_t lo, int64_t hi, int k_max, DetectScratch s, bool vec) {
   constexpr int kStaged = kStatsPre + kTile;          // x from n0-96
   __shared__ __align__(16) float2 xs[kStaged];
-  __shared__ float mr[pad<R>(kStaged)], mi[pad<R>(kStaged)], e[pad<R>(kStaged)];
+  __shared__ float mr[pad(kStaged)], mi[pad(kStaged)], e[pad(kStaged)];
   __shared__ unsigned aw[kTile / 32];                 // above, bit j: sample n0-32+j
-  const int64_t tile = blockIdx.x, tiles = gridDim.x, row = blockIdx.y;
+  static_assert(R == 8, "a thread packs its R threshold flags into one byte");
+  const int64_t tile = blockIdx.x, tiles = gridDim.x;
   const int64_t n0 = tile * kDetectTile;
   const int64_t c0 = n0 - kLookBack;                  // sample of output 0
   const int t = threadIdx.x, lane = t & 31;
 
-  stage(xs, x + row * n, c0 - kStatsPre, kStaged, n, vec);
-  __syncthreads();
-  form<R>(xs, kStaged, mr, mi, e);
-  __syncthreads();
-  float ar[R], ai[R], pp[R];
-  window_sums<R>(mr, mi, e, kStatsPre + t * R, ar, ai, pp);
-  __syncthreads();                                    // every thread has read mr, mi, e
-  unsigned bits = 0;                                  // c is 0 before the row's start
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    __syncthreads();                                    // previous row's edges taken
+    stage(xs, x + row * n, c0 - kStatsPre, kStaged, n, vec);
+    __syncthreads();
+    form(xs, kStaged, mr, mi, e);
+    __syncthreads();
+    float ar[R], ai[R], pp[R];
+    window_sums(mr, mi, e, kStatsPre + t * R, ar, ai, pp);
+    __syncthreads();                                    // every thread has read mr, mi, e
+    unsigned bits = 0;                                  // c is 0 before the row's start
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = pad<R>(t * R + r);
-    const float c = ratio(ar[r], ai[r], pp[r]);
-    mr[j] = ar[r];
-    mi[j] = ai[r];
-    e[j] = c;
-    bits |= static_cast<unsigned>(c >= thr) << r;
-  }
-  if constexpr (R == 8) {
+    for (int r = 0; r < R; ++r) {
+      const int j = pad(t * R + r);
+      const float c = ratio(ar[r], ai[r], pp[r]);
+      mr[j] = ar[r];
+      mi[j] = ai[r];
+      e[j] = c;
+      bits |= static_cast<unsigned>(c >= thr) << r;
+    }
     reinterpret_cast<uint8_t*>(aw)[t] = static_cast<uint8_t>(bits);
-  } else {
-    reinterpret_cast<uint16_t*>(aw)[t] = static_cast<uint16_t>(bits);
-  }
-  const int64_t t_end = n > mp ? n - mp : 0;          // trigger of an invalid slot
-  __syncthreads();
-  if (t == 0 && t_end >= n0 && t_end < n0 + kDetectTile)
-    s.tail_c[row] = e[pad<R>(static_cast<int>(t_end - c0))];
+    const int64_t t_end = n > mp ? n - mp : 0;          // trigger of an invalid slot
+    __syncthreads();
+    if (t == 0 && t_end >= n0 && t_end < n0 + kDetectTile)
+      s.tail_c[row] = e[pad(static_cast<int>(t_end - c0))];
 
-  // lane i >= 1 owns samples n0 + 32 (i-1) .. + 31: above words i-1 and i
-  if (t < 32) {
-    unsigned w = 0;
-    if (lane > 0) {
-      const uint64_t both = (static_cast<uint64_t>(aw[lane]) << 32) | aw[lane - 1];
-      uint64_t cur = ~0ull, prev = ~0ull;             // plateau at k and at k-1
-      for (int d = 0; d <= mp; ++d) {
-        const unsigned sh = static_cast<unsigned>(both >> (32 - d));
-        if (d < mp) cur &= sh;
-        if (d > 0) prev &= sh;
+    // lane i >= 1 owns samples n0 + 32 (i-1) .. + 31: above words i-1 and i
+    if (t < 32) {
+      unsigned w = 0;
+      if (lane > 0) {
+        const uint64_t both = (static_cast<uint64_t>(aw[lane]) << 32) | aw[lane - 1];
+        uint64_t cur = ~0ull, prev = ~0ull;             // plateau at k and at k-1
+        for (int d = 0; d <= mp; ++d) {
+          const unsigned sh = static_cast<unsigned>(both >> (32 - d));
+          if (d < mp) cur &= sh;
+          if (d > 0) prev &= sh;
+        }
+        const int64_t base = n0 + 32 * (lane - 1);
+        const int64_t b_lo = lo - base < 0 ? 0 : (lo - base > 32 ? 32 : lo - base);
+        const int64_t b_hi = hi - base < 0 ? 0 : (hi - base > 32 ? 32 : hi - base);
+        const uint64_t range = ((1ull << b_hi) - 1) & ~((1ull << b_lo) - 1);
+        w = static_cast<unsigned>(cur & ~prev & range);
       }
-      const int64_t base = n0 + 32 * (lane - 1);
-      const int64_t b_lo = lo - base < 0 ? 0 : (lo - base > 32 ? 32 : lo - base);
-      const int64_t b_hi = hi - base < 0 ? 0 : (hi - base > 32 ? 32 : hi - base);
-      const uint64_t range = ((1ull << b_hi) - 1) & ~((1ull << b_lo) - 1);
-      w = static_cast<unsigned>(cur & ~prev & range);
-    }
-    const int c = __popc(w);
-    int incl = c;
+      const int c = __popc(w);
+      int incl = c;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      const int64_t slot0 = (row * tiles + tile) * k_max;
+      for (int rank = incl - c; w != 0 && rank < k_max; ++rank) {
+        const int b = __ffs(w) - 1;
+        w &= w - 1;
+        const int64_t edge = n0 + 32 * (lane - 1) + b;
+        const int64_t trig = edge - (mp - 1) > 0 ? edge - (mp - 1) : 0;
+        const int j = pad(static_cast<int>(trig - c0));
+        s.eidx[slot0 + rank] = static_cast<int>(edge);
+        s.ea[slot0 + rank] = make_float2(mr[j], mi[j]);
+        s.ec[slot0 + rank] = e[j];
+      }
+      if (lane == 0) s.cnt[row * tiles + tile] = total < k_max ? total : k_max;
     }
-    const int total = __shfl_sync(kFull, incl, 31);
-    const int64_t slot0 = (row * tiles + tile) * k_max;
-    for (int rank = incl - c; w != 0 && rank < k_max; ++rank) {
-      const int b = __ffs(w) - 1;
-      w &= w - 1;
-      const int64_t edge = n0 + 32 * (lane - 1) + b;
-      const int64_t trig = edge - (mp - 1) > 0 ? edge - (mp - 1) : 0;
-      const int j = pad<R>(static_cast<int>(trig - c0));
-      s.eidx[slot0 + rank] = static_cast<int>(edge);
-      s.ea[slot0 + rank] = make_float2(mr[j], mi[j]);
-      s.ec[slot0 + rank] = e[j];
-    }
-    if (lane == 0) s.cnt[row * tiles + tile] = total < k_max ? total : k_max;
   }
 }
 
@@ -346,13 +343,12 @@ bool aligned16(const void* p, int64_t n) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && n % 2 == 0;
 }
 
-template <int R>
 int launch_stats(const void* x, void* a, void* p, void* c, int64_t rows, int64_t n,
                  cudaStream_t stream) {
   const int64_t tiles = (n + kTile - 1) / kTile;
   const dim3 grid(static_cast<unsigned>(tiles),
                   static_cast<unsigned>(rows < 65535 ? rows : 65535));
-  sync_stats_kernel<R><<<grid, kTile / R, 0, stream>>>(
+  sync_stats_kernel<<<grid, kTile / R, 0, stream>>>(
       static_cast<const float2*>(x), static_cast<float2*>(a), static_cast<float*>(p),
       static_cast<float*>(c), rows, n, aligned16(x, n));
   return static_cast<int>(cudaGetLastError());
@@ -365,17 +361,7 @@ int launch_stats(const void* x, void* a, void* p, void* c, int64_t rows, int64_t
 extern "C" int gwt_sync_stats(const void* x, void* a, void* p, void* c,
                               int64_t rows, int64_t n, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  return launch_stats<kDefaultR>(x, a, p, c, rows, n, static_cast<cudaStream_t>(stream));
-}
-
-// The same with R outputs a thread (8 or 16), to compare the two on a card.
-extern "C" int gwt_sync_stats_r(const void* x, void* a, void* p, void* c,
-                                int64_t rows, int64_t n, int r, void* stream) {
-  if (rows <= 0 || n <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r == 8) return launch_stats<8>(x, a, p, c, rows, n, st);
-  if (r == 16) return launch_stats<16>(x, a, p, c, rows, n, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stats(x, a, p, c, rows, n, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of the detector's scratch for (rows, n) and K candidates a row.
@@ -392,14 +378,14 @@ extern "C" int gwt_sync_detect(const void* x, int64_t rows, int64_t n, float thr
                                int64_t lo, int64_t hi, int k, void* scratch, void* starts,
                                void* valid, void* a_out, void* ratio_out, void* stream) {
   if (rows <= 0 || n <= 0 || k <= 0) return 0;
-  if (mp < 1 || mp > kLookBack || rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (mp < 1 || mp > kLookBack) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (n + kDetectTile - 1) / kDetectTile;
   const DetectScratch s = carve(scratch, rows, tiles, k);
-  sync_detect_kernel<kDefaultR><<<dim3(static_cast<unsigned>(tiles),
-                                       static_cast<unsigned>(rows)),
-                                  kTile / kDefaultR, 0, st>>>(
-      static_cast<const float2*>(x), n, thr, mp, lo, hi, k, s, aligned16(x, n));
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
+  sync_detect_kernel<<<grid, kTile / R, 0, st>>>(
+      static_cast<const float2*>(x), rows, n, thr, mp, lo, hi, k, s, aligned16(x, n));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   sync_merge_kernel<<<static_cast<unsigned>(rows), 32, 0, st>>>(

@@ -18,36 +18,38 @@
 // differently and break ties another way. The max is exact in any order.
 //
 // Bound: the recursion is serial in the trellis steps; per frame and step
-// it does about 700 float32 operations and the data are tiny (8 bytes of
-// LLRs in, 1 byte out per step). At the executor's step (256 frames x 422
-// steps for the payloads plus 256 x 24 for SIGNAL) the operation bound is
-// about 1.2 us and the byte bound 0.3 us; the kernel is latency bound by
-// the chain of 422 dependent steps.
+// it does about 330 float32 operations in the form below (4 gains, 128
+// adds, 64 selects, the max and 64 subtracts) and the data are tiny (8
+// bytes of LLRs in, 1 byte out per step). At the executor's step (256
+// frames x 422 steps for the payloads plus 256 x 24 for SIGNAL) the
+// operation bound is about 0.56 us and the byte bound 0.31 us; the kernel
+// is latency bound by the chain of 422 dependent steps.
 //
 // Design, for that chain:
 // - One launch decodes a table of segments (SIGNAL and payload trellises
 //   of a step together), one warp a block; a warp holds F frames of one
 //   segment (4 at 8 lanes a frame, fewer when a long trellis needs the
-//   shared memory).
+//   shared memory). 16 lanes a frame was 3 % faster on the H100 at 422
+//   steps but takes trellises of 9 600 steps at most against 14 400
+//   (PERF.md), so 8 stays.
 // - The trellis is a butterfly (params.conv_tables(): prev_state[ns][k] =
 //   2 (ns mod 32) + k, prev_bit[ns][k] = ns / 32; gwt_viterbi_check_tables
-//   checks the port's tables against it and the generators). Lane l of a frame's group owns the new states H l .. H l +
-//   H-1 and 32 + H l .. 32 + H l + H-1 (H = 32 / lanes a frame), whose
-//   predecessors are exactly 2 H l .. 2 H l + 2 H - 1: a lane reads its
-//   predecessors as float4s and writes its new metrics as float4s (8
-//   lanes) or float2s (16 lanes).
+//   checks the port's tables against it and the generators). Lane l of a
+//   frame's group owns the new states 4 l .. 4 l + 3 and 32 + 4 l .. 32 +
+//   4 l + 3, whose predecessors are exactly 8 l .. 8 l + 7: a lane reads
+//   its predecessors as two float4s and writes its new metrics as two.
 // - Path metrics are double-buffered in shared memory, so a step needs one
 //   __syncwarp, after its stores. They are stored before the step's max
 //   is subtracted; the reader subtracts it, so the max travels through
 //   the shuffles while the metrics go through shared memory.
-// - The step's max is an in-lane max of 2H values, then log2(lanes a
-//   frame) shuffles inside the group (3 at 8 lanes, against 5 over a warp).
+// - The step's max is an in-lane max of 8 values, then 3 shuffles inside
+//   the group of 8 lanes (against 5 over a warp).
 // - The code is linear over GF(2), so an edge's output pair is a lane
 //   constant XOR a compile-time slot: a step forms its 4 gains once,
 //   permutes them by the lane constant (8 selects) and indexes them
 //   statically. They do not depend on the metrics, so they sit off the
 //   chain. Survivor decisions are one byte a lane a step in shared memory:
-//   state s is byte (s mod 32) / H, bit (s mod H) + H (s >= 32). The first
+//   state s is byte (s mod 32) / 4, bit (s mod 4) + 4 (s >= 32). The first
 //   lane of each group traces back in the same launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +59,7 @@ namespace {
 constexpr int kStates = 64;
 constexpr int kMaxSegments = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDefaultLanes = 8;     // lanes a frame (8 or 16)
+constexpr int LPF = 8;               // lanes a frame
 
 // the 802.11a generators (phy/params.py G0, G1); out_a is the G0 bit
 constexpr unsigned kG0 = 0133, kG1 = 0171;
@@ -89,7 +91,6 @@ struct SegmentTable {
   int count;
 };
 
-template <int LPF>
 __host__ __device__ constexpr int shared_bytes(int frames, int n) {
   return frames * n * (8 + LPF);       // staged LLRs + decision bytes
 }
@@ -116,7 +117,6 @@ __device__ __forceinline__ void stage_llrs(float2* dst, const float2* __restrict
   }
 }
 
-template <int LPF>
 __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   constexpr int SPL = kStates / LPF;   // states a lane owns
   constexpr int H = SPL / 2;           // ... in each half of the state space
@@ -193,13 +193,8 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
       nv[j] = d ? c1 : c0;
       byte |= static_cast<unsigned>(d) << j;
     }
-    if constexpr (H == 4) {
-      *reinterpret_cast<float4*>(nxt + lo_at) = make_float4(nv[0], nv[1], nv[2], nv[3]);
-      *reinterpret_cast<float4*>(nxt + hi_at) = make_float4(nv[4], nv[5], nv[6], nv[7]);
-    } else {
-      *reinterpret_cast<float2*>(nxt + lo_at) = make_float2(nv[0], nv[1]);
-      *reinterpret_cast<float2*>(nxt + hi_at) = make_float2(nv[2], nv[3]);
-    }
+    *reinterpret_cast<float4*>(nxt + lo_at) = make_float4(nv[0], nv[1], nv[2], nv[3]);
+    *reinterpret_cast<float4*>(nxt + hi_at) = make_float4(nv[4], nv[5], nv[6], nv[7]);
     if (active) dec[t * dstride + g * LPF + l] = static_cast<uint8_t>(byte);
     gains(mine[t + 1 < n ? t + 1 : t], p);
     float m = nv[0];
@@ -241,7 +236,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
 #pragma unroll 8
     for (int t = n - 1; t >= 0; --t) {
       const int byte = (state & 31) / H;                  // lane of the state
-      const uint64_t w = dg[t * wstride + (LPF == 8 ? 0 : byte / 8)];
+      const uint64_t w = dg[t * wstride];
       const int k = static_cast<int>(
           (w >> ((byte % 8) * 8 + (state % H) + (state >= 32 ? H : 0))) & 1);
       out[t] = static_cast<uint8_t>(state >> 5);          // prev_bit[state][k]
@@ -250,7 +245,6 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   }
 }
 
-template <int LPF>
 int launch(const int64_t* desc, int count, int64_t max_smem, cudaStream_t stream) {
   constexpr int G = 32 / LPF;
   SegmentTable tab{};
@@ -264,21 +258,21 @@ int launch(const int64_t* desc, int count, int64_t max_smem, cudaStream_t stream
     s.terminated = static_cast<int>(desc[5 * i + 4]);
     if (s.batch <= 0 || s.n <= 0) continue;
     s.frames = G;
-    while (s.frames > 1 && shared_bytes<LPF>(s.frames, s.n) > max_smem) s.frames /= 2;
-    if (shared_bytes<LPF>(s.frames, s.n) > max_smem) return cudaErrorInvalidValue;
+    while (s.frames > 1 && shared_bytes(s.frames, s.n) > max_smem) s.frames /= 2;
+    if (shared_bytes(s.frames, s.n) > max_smem) return cudaErrorInvalidValue;
     s.block0 = blocks;
     blocks += static_cast<int>((s.batch + s.frames - 1) / s.frames);
-    const int b = shared_bytes<LPF>(s.frames, s.n);
+    const int b = shared_bytes(s.frames, s.n);
     smem = b > smem ? b : smem;
     ++tab.count;
   }
   if (blocks == 0) return 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_kernel<LPF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  viterbi_kernel<LPF><<<blocks, 32, smem, stream>>>(tab);
+  viterbi_kernel<<<blocks, 32, smem, stream>>>(tab);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,7 +301,7 @@ extern "C" int gwt_viterbi_check_tables(const int* prev_state, const int* prev_b
 
 // Longest trellis one launch takes (one frame a warp at 8 lanes a frame).
 extern "C" int64_t gwt_viterbi_max_steps() {
-  return kMaxDynamicSmem / shared_bytes<kDefaultLanes>(1, 1);
+  return kMaxDynamicSmem / shared_bytes(1, 1);
 }
 
 extern "C" int gwt_viterbi_max_segments() { return kMaxSegments; }
@@ -315,12 +309,8 @@ extern "C" int gwt_viterbi_max_segments() { return kMaxSegments; }
 // desc: count x (llr pointer, bits pointer, batch, n, terminated) as
 // int64, host memory; llr (batch, n) float2 pairs (llr_a, llr_b) per
 // trellis step and bits (batch, n) uint8 are device pointers, contiguous.
-// lanes: lanes a frame, 8 or 16. One launch. Returns cudaGetLastError().
-extern "C" int gwt_viterbi_decode_segments(const int64_t* desc, int count, int lanes,
-                                           void* stream) {
+// One launch. Returns cudaGetLastError().
+extern "C" int gwt_viterbi_decode_segments(const int64_t* desc, int count, void* stream) {
   if (count < 0 || count > kMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lanes == 8) return launch<8>(desc, count, kMaxDynamicSmem, st);
-  if (lanes == 16) return launch<16>(desc, count, kMaxDynamicSmem, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(desc, count, kMaxDynamicSmem, static_cast<cudaStream_t>(stream));
 }

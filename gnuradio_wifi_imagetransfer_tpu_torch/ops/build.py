@@ -88,8 +88,6 @@ def library() -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.gwt_sync_stats.argtypes = [vp, vp, vp, vp, i64, i64, vp]
     lib.gwt_sync_stats.restype = i32
-    lib.gwt_sync_stats_r.argtypes = [vp, vp, vp, vp, i64, i64, i32, vp]
-    lib.gwt_sync_stats_r.restype = i32
     lib.gwt_sync_detect_scratch_bytes.argtypes = [i64, i64, i64]
     lib.gwt_sync_detect_scratch_bytes.restype = i64
     lib.gwt_sync_detect.argtypes = [vp, i64, i64, ctypes.c_float, i32, i64, i64, i32,
@@ -101,7 +99,7 @@ def library() -> ctypes.CDLL:
     lib.gwt_viterbi_max_steps.restype = i64
     lib.gwt_viterbi_max_segments.argtypes = []
     lib.gwt_viterbi_max_segments.restype = i32
-    lib.gwt_viterbi_decode_segments.argtypes = [vp, i32, i32, vp]
+    lib.gwt_viterbi_decode_segments.argtypes = [vp, i32, vp]
     lib.gwt_viterbi_decode_segments.restype = i32
     lib.gwt_fir.argtypes = [vp, vp, vp, i64, i64, i64, i32, vp]
     lib.gwt_fir.restype = i32

@@ -200,8 +200,6 @@ def sync_detect(x: torch.Tensor, max_frames: int, threshold: float, min_plateau:
         raise ValueError(f"sync_detect: max_frames {max_frames} < 1")
     lead, n = x.shape[:-1], x.shape[-1]
     rows = x.numel() // n
-    if rows > 65535:
-        raise ValueError(f"sync_detect: {rows} rows exceed one launch's 65535")
     buf = _detect_buffer(rows, n, max_frames, x.device)
     if rows:
         _detect_launch(x, max_frames, threshold, min_plateau, search_lo, search_hi, buf)

@@ -25,8 +25,6 @@ import torch
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
 
-LANES_PER_FRAME = 8      # 8 or 16 (csrc/viterbi_acs.cu kDefaultLanes)
-
 
 @functools.cache
 def _np_tables():
@@ -99,8 +97,7 @@ def viterbi_decode(llr: torch.Tensor, terminated: bool = True) -> torch.Tensor:
     forward and traceback); a CPU tensor through ``viterbi_decode_plain``."""
     if llr.device.type == "cpu":
         return viterbi_decode_plain(llr, terminated)
-    bits, launched = _decode_segments([llr], [bool(terminated)], LANES_PER_FRAME,
-                                      "viterbi_decode")
+    bits, launched = _decode_segments([llr], [bool(terminated)], "viterbi_decode")
     viterbi_decode.launches += launched
     return bits[0]
 
@@ -125,16 +122,14 @@ def viterbi_decode_many(llrs, terminated) -> list[torch.Tensor]:
                          f"{len(terminated)} terminated flags")
     if all(v.device.type == "cpu" for v in llrs):
         return viterbi_decode_many_plain(llrs, terminated)
-    bits, launched = _decode_segments(llrs, terminated, LANES_PER_FRAME,
-                                      "viterbi_decode_many")
+    bits, launched = _decode_segments(llrs, terminated, "viterbi_decode_many")
     viterbi_decode_many.launches += launched
     return bits
 
 
-def _decode_segments(llrs, terminated, lanes: int, name: str = "viterbi_decode_many"):
-    """The one launch behind both wrappers, at ``lanes`` lanes a frame (8
-    or 16; the other split is kept to compare the two on a card). Returns
-    (bits, 1 if it launched else 0)."""
+def _decode_segments(llrs, terminated, name: str):
+    """The one launch behind both wrappers. Returns (bits, 1 if it
+    launched else 0)."""
     for v in llrs:
         _check(v, name)
     dev = llrs[0].device
@@ -153,7 +148,7 @@ def _decode_segments(llrs, terminated, lanes: int, name: str = "viterbi_decode_m
     desc = (ctypes.c_int64 * (5 * len(llrs)))(*(
         x for v, b, t in zip(llrs, bits, terminated)
         for x in (v.data_ptr(), b.data_ptr(), v.shape[0], v.shape[1], int(t))))
-    err = lib.gwt_viterbi_decode_segments(desc, len(llrs), lanes,
+    err = lib.gwt_viterbi_decode_segments(desc, len(llrs),
                                           torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
     return bits, 1

@@ -131,6 +131,17 @@ def test_sync_detect_kernel_on_noise_and_bursts(dev, rows, n):
     _assert_candidates(got, want)
 
 
+def test_sync_detect_kernel_past_65535_rows(dev):
+    """More rows than a launch's grid holds in y: the kernel loops rows."""
+    edges = [[] for _ in range(65_540)]
+    edges[0], edges[65_535], edges[65_539] = [150], [150, 260], [120]
+    x = _burst_rows(300, edges, seed=11).to(dev)
+    got, want = _detect_both(x, 2, 2, 0, None)
+    assert want[1].sum().item() == 4
+    assert want[0][65_535].tolist() == [149, 259] and want[0][65_539, 0].item() == 119
+    _assert_candidates(got, want)
+
+
 def test_sync_detect_tiling_model_matches_the_kernel(dev):
     x = _burst_rows(7200, EDGES, seed=4)
     starts = k1.sync_detect(x.to(dev), 4, 0.56, 2)[0].cpu()
@@ -167,23 +178,19 @@ def test_viterbi_kernel_matches_plain(dev, b, n, kind, terminated):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("lanes", [8, 16])
 @pytest.mark.parametrize("segs", [[(256, 422, "random", True), (256, 24, "tied", True)],
                                   [(5, 1000, "punctured", False), (3, 24, "random", True),
                                    (0, 30, "random", True)],
                                   [(7, 3000, "tied", True), (2, 17, "punctured", False),
                                    (9, 422, "random", False)]])
-def test_viterbi_many_kernel_matches_plain(dev, segs, lanes):
+def test_viterbi_many_kernel_matches_plain(dev, segs):
     llrs = [_llrs(b, n, seed=b * n + 1, kind=kind).to(dev) for b, n, kind, _ in segs]
     flags = [t for *_, t in segs]
     want = k2.viterbi_decode_many_plain(llrs, flags)
     before = k2.viterbi_decode_many.launches
-    if lanes == k2.LANES_PER_FRAME:
-        got = k2.viterbi_decode_many(llrs, flags)
-        assert k2.viterbi_decode_many.launches == before + 1
-    else:                    # the other split, kept to compare the two
-        got = k2._decode_segments(llrs, flags, lanes)[0]
+    got = k2.viterbi_decode_many(llrs, flags)
     torch.cuda.synchronize()
+    assert k2.viterbi_decode_many.launches == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
 
