@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (one NVIDIA GPU).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent <checkout root>]
+    python3 chip_smoke.py --fir-times <checkout root>
 
 Drives the port's main paths through the entry points a user calls and
 holds each hand-written kernel against its plain PyTorch version:
@@ -25,13 +26,19 @@ holds each hand-written kernel against its plain PyTorch version:
      segment a launch and both segments in one launch
      (``viterbi_decode_many``);
   5. checks the FIR kernel (K3) against its plain version (atol 2e-4): (2,
-     300) with 5, 48, 129 and 200 taps, real and complex; (4, 4 194 304)
-     complex with 65 taps; rows kept apart (batch isolation);
+     300) with 5, 48, 129 and 200 taps; rows of 2047, 2048, 2049 and 4097
+     samples (around the 2048-output tile) with 1, 65, 256, 257 and 1000
+     taps (around the 256-tap chunk); all real and complex; (70 000,
+     40), past 65 535 rows; (4, 4 194 304) complex with 65 taps; rows
+     kept apart (batch isolation);
   6. checks the polyphase-resampler kernel (K4) against its plain version
      (atol 2e-4): ratios 1/2, 2/1, 3/4, 4/3, 5/2, real and complex, at
-     (600,) and (2, 4, 90); the full-width 3/4 front-end input (4 rows of
-     5.6 M samples); 25001/25000 on (1, 1 048 576), past the int32 index
-     range, with an analytic tone within 1e-3;
+     (600,) and (2, 4, 90); rows around the 2048-output tile at 3/4, 1/2
+     and 2/1; 1/96 (a smaller tile), phase rows of 16, 9 and 7000 taps
+     (the generic loop, restaged passes); (70 000, 50) at 3/4; the
+     full-width 3/4 front-end input (4 rows of 5.6 M samples); 25001/25000
+     on (1, 1 048 576), past the int32 index range and through the phase
+     table in L2, with an analytic tone within 1e-3;
   7. runs the flagship block: 4 frames (MCS 2, 50-byte PSDUs) made by the
      port's TX in a 32 768-sample block with seeded noise, through
      ``sync.receive`` with 8 slots on CUDA; all 4 frames must come back
@@ -56,8 +63,16 @@ holds each hand-written kernel against its plain PyTorch version:
  13. times each kernel (CUDA events) beside its plain version and bound:
      dense K1, the fused detector and dense K1 plus the torch glue it
      replaces, the segmented K2 and the same trellises as two one-segment
-     launches, K2's chain floor; then prints one JSON line of kernel
-     timings, bounds and launch counts.
+     launches, K2's chain floor, K3 and K4 with their share of bound and
+     their conv1d yardsticks, K3 with its taps given as numpy and as a
+     CUDA tensor (with ``--parent``, also the other checkout's K3 and K4
+     in turns with this tree's, each in a process of its own); then
+     prints one JSON line of kernel timings, bounds and launch counts.
+
+``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
+phase 13's shapes (three rounds of 20 calls, CUDA events) and prints one
+JSON line; two checkouts are compared by running it in turns (A, B, B,
+A). It builds the kernels into that checkout's own build directory.
 
 Launch counts are set to 0 just before each main-path run (7 to 11) and
 read just after; launches made to compare or time a kernel do not count.
@@ -154,6 +169,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def fir_times(root: str) -> None:
+    """Times the K3 and K4 of the port under root: fir_filter on (4, 4 194
+    304) complex64 with 65 taps (numpy, then a CUDA tensor), and
+    polyphase_resample at 3/4 on (4, 5 595 478) complex64 (the general
+    front-end's input of phase 10) with design_lowpass(3, 4); three rounds
+    of 20 calls each. Prints one JSON line."""
+    import scipy.signal
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    sys.path.insert(0, root)
+    try:
+        from gnuradio_wifi_imagetransfer_tpu_torch import ops
+        from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir
+    except ImportError as e:
+        fail(f"the port package {PKG} is not under {root} ({e})")
+    check(os.path.abspath(fir.__file__).startswith(os.path.join(root, PKG)),
+          f"{PKG} was imported from {fir.__file__}, not from {root}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def cplx(shape):
+        v = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(v.astype(np.complex64)).to(dev)
+
+    x3, h3 = cplx((CHANNELS, 1 << 22)), scipy.signal.firwin(FIR_TAPS, 0.5).astype(np.float32)
+    h3_dev = torch.from_numpy(h3).to(dev)
+    x4, h4 = cplx((CHANNELS, 5_595_478)), ops.design_lowpass(3, 4)
+    out = {"root": root, "fir_ms": [], "fir_device_taps_ms": [], "resample_ms": []}
+    for _ in range(3):
+        out["fir_ms"].append(cuda_ms(lambda: fir.fir_filter(x3, h3), 20))
+        out["fir_device_taps_ms"].append(cuda_ms(lambda: fir.fir_filter(x3, h3_dev), 20))
+        out["resample_ms"].append(cuda_ms(lambda: fir.polyphase_resample(x4, 3, 4, h4), 20))
+    print(json.dumps(out))
+
+
+def fir_times_of(root: str) -> dict:
+    """fir_times(root) in a process of its own (one port package a
+    process); its failure is this run's."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--fir-times", root],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"--fir-times {root} exited {r.returncode}: {r.stderr.strip()[-2000:]}")
+    try:
+        return json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"--fir-times {root} printed no JSON line: {r.stdout[-2000:]}")
+
+
 def max_err(got, want) -> float:
     return (got - want).abs().max().item()
 
@@ -222,7 +287,20 @@ def burst_rows(n: int, edges_per_row, min_plateau: int, seed: int):
 
 
 def main() -> None:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch + CUDA port.")
+    ap.add_argument("--parent", help="another checkout's root: time its K3 and K4 beside "
+                                     "this tree's in phase 13, in turns")
+    ap.add_argument("--fir-times", metavar="ROOT",
+                    help="only time the K3 and K4 of the checkout at ROOT")
+    args = ap.parse_args()
+    if args.fir_times:
+        fir_times(os.path.abspath(args.fir_times))
+        return
+    parent = os.path.abspath(args.parent) if args.parent else None
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -449,6 +527,23 @@ def main() -> None:
             e = max_err(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps))
             check(e <= 2e-4, f"fir kernel != plain: {n_taps} taps, complex={cplx}: {e:.3g}")
             k3_err = max(k3_err, e)
+    # rows around the 2048-output tile, taps around the 256-tap chunk
+    # (unit energy), more than 65 535 rows
+    for n_taps in (1, 65, 256, 257, 1000):
+        taps = (np.random.default_rng(n_taps).standard_normal(n_taps)
+                / np.sqrt(n_taps)).astype(np.float32)
+        for cplx in (False, True):
+            for shape in ((3, 2047), (3, 2048), (3, 2049), (3, 4097)):
+                x = rand(shape, n_taps, cplx)
+                e = max_err(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps))
+                check(e <= 2e-4, f"fir kernel != plain: {shape} x {n_taps} taps, "
+                                 f"complex={cplx}: {e:.3g}")
+                k3_err = max(k3_err, e)
+    x = rand((70_000, 40), 5, True)
+    taps = np.random.default_rng(5).standard_normal(65).astype(np.float32) / 8
+    e = max_err(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps))
+    check(e <= 2e-4, f"fir kernel != plain on (70000, 40): {e:.3g}")
+    k3_err = max(k3_err, e)
     iso = torch.zeros(2, 256, device=dev)
     iso[0, 250] = 1.0
     y_iso = k34.fir_filter(iso, np.ones(64, np.float32))
@@ -460,8 +555,9 @@ def main() -> None:
     e = max_err(k34.fir_filter(fir_x, fir_h), k34.fir_filter_plain(fir_x, fir_h))
     check(e <= 2e-4, f"fir kernel != plain on {tuple(fir_x.shape)}: {e:.3g}")
     k3_err = max(k3_err, e)
-    print(f"K3 fir (2, 300) x 5/48/129/200 taps real and complex, {tuple(fir_x.shape)} "
-          f"complex x {FIR_TAPS} taps: max |dy| {k3_err:.3g} (atol 2e-4); rows kept apart: ok")
+    print(f"K3 fir (2, 300) x 5/48/129/200 taps, (3, 2047/2048/2049/4097) x 1/65/256/257/1000 "
+          f"taps, real and complex, (70000, 40) complex, {tuple(fir_x.shape)} complex x "
+          f"{FIR_TAPS} taps: max |dy| {k3_err:.3g} (atol 2e-4); rows kept apart: ok")
 
     # -- 6. K4 against its plain version ---------------------------------
     k4_err = 0.0
@@ -477,6 +573,23 @@ def main() -> None:
                 check(e <= 2e-4, f"resampler kernel != plain: {l}/{m} {shape} "
                                  f"complex={cplx}: {e:.3g}")
                 k4_err = max(k4_err, e)
+    # rows around the 2048-output tile (2730-2732 and 5462 give 2048, 2049
+    # and 4097 outputs at 3/4), spans that shrink the tile (1/96), phase
+    # rows of other lengths (the generic loop) and of 7000 taps (restaged
+    # passes), more than 65 535 rows
+    cases = [((3, n), l, m, 12) for n in (2047, 2048, 2049, 4097, 2730, 2731, 2732, 5462)
+             for l, m in ((3, 4), (1, 2), (2, 1))]
+    cases += [((2, 20_000), 1, 96, 12), ((2, 20_000), 3, 4, 16), ((2, 20_000), 7, 5, 9),
+              ((2, 20_000), 1, 2, 7000), ((70_000, 50), 3, 4, 12)]
+    for shape, l, m, tpp in cases:
+        taps = ops.design_lowpass(l, m, tpp)
+        for cplx in (False, True):
+            x = rand(shape, l + m + tpp, cplx)
+            e = max_err(k34.polyphase_resample(x, l, m, taps),
+                        k34.polyphase_resample_plain(x, l, m, taps))
+            check(e <= 2e-4, f"resampler kernel != plain: {l}/{m} x {tpp} taps a phase "
+                             f"{shape} complex={cplx}: {e:.3g}")
+            k4_err = max(k4_err, e)
     # the executor's general front-end input: the 4/3 capture, padded
     ex_34 = StreamExecutor(tx.tx_plan(MCS, PSDU_LEN), device=dev, exec_cfg=dataclasses.replace(
         cfg, frontend=FrontendConfig(resample=(3, 4))))
@@ -506,6 +619,8 @@ def main() -> None:
     check(j[-1] * 25000 >= 2**31 and e_tone <= 1e-3,
           f"resampler at 25001/25000: tone error {e_tone:.3g} > 1e-3")
     print(f"K4 resample 1/2 2/1 3/4 4/3 5/2 real and complex at (600,) and (2, 4, 90), "
+          f"rows around the tile at 3/4 1/2 2/1, 1/96, 12-16-9-7000 taps a phase, "
+          f"(70000, 50), "
           f"{tuple(k4_x.shape)} at 3/4, (1, {n_tone}) at 25001/25000: max |dy| {k4_err:.3g} "
           f"(atol 2e-4); tone error past j*M = 2**31: {e_tone:.3g} (<= 1e-3): ok")
 
@@ -708,7 +823,10 @@ def main() -> None:
     # re/im rows (laid out outside the timed call) with flipped taps
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    k3_ms = cuda_ms(lambda: k34.fir_filter(fir_x, fir_h), 20)
+    # numpy taps, as ops.fir_filter's callers pass them; then the same
+    # taps as a CUDA tensor
+    k3_ms = cuda_ms(lambda: k34.fir_filter(fir_x, fir_taps), 20)
+    k3_dev_ms = cuda_ms(lambda: k34.fir_filter(fir_x, fir_h), 20)
     k3_plain = cuda_ms(lambda: k34.fir_filter_plain(fir_x, fir_h), 3)
     re_im = torch.view_as_real(fir_x).permute(0, 2, 1).reshape(-1, 1, n).contiguous()
     w3 = fir_h.flip(0).reshape(1, 1, -1)
@@ -724,7 +842,8 @@ def main() -> None:
     # K4 on the general front-end's input; library: conv1d with stride M
     # over the L-fold zero-stuffed re/im rows (stuffed and padded outside
     # the timed call) with flipped taps
-    k4_ms = cuda_ms(lambda: k34.polyphase_resample(k4_x, 3, 4, k4_h), 20)
+    # numpy taps, as the front-end passes them (phase table cached on the card)
+    k4_ms = cuda_ms(lambda: k34.polyphase_resample(k4_x, 3, 4, k4_taps), 20)
     k4_plain = cuda_ms(lambda: k34.polyphase_resample_plain(k4_x, 3, 4, k4_h), 3)
     n_out4 = k4_y.shape[-1]
     n_t4 = k4_taps.size
@@ -779,10 +898,22 @@ def main() -> None:
           f"sync_stats {k1_ms:.4f} ms, plain {k1_plain:.3f} ms; viterbi_decode "
           f"{k2_pay:.4f} + {k2_sig:.4f} ms, plain {k2_pay_plain:.2f} + {k2_sig_plain:.2f} ms "
           f"(CUDA events; {card})")
-    print(f"fir_filter on {tuple(fir_x.shape)} x {FIR_TAPS} taps: {k3_ms:.4f} ms, plain "
-          f"{k3_plain:.3f} ms, conv1d {k3_lib:.4f} ms; polyphase_resample 3/4 on "
-          f"{tuple(k4_x.shape)} -> {n_out4}: {k4_ms:.4f} ms, plain {k4_plain:.3f} ms, "
-          f"conv1d {k4_lib:.4f} ms (CUDA events; {card})")
+    k3_b, k4_b = max(k3_bound.values()), max(k4_bound.values())
+    print(f"fir_filter on {tuple(fir_x.shape)} x {FIR_TAPS} taps: {k3_ms:.4f} ms ({k3_b / k3_ms:.0%} "
+          f"of its {k3_b:.4f} ms bound; taps as a CUDA tensor {k3_dev_ms:.4f} ms), plain "
+          f"{k3_plain:.3f} ms, conv1d {k3_lib:.4f} ms; "
+          f"polyphase_resample 3/4 on {tuple(k4_x.shape)} -> {n_out4}: {k4_ms:.4f} ms "
+          f"({k4_b / k4_ms:.0%} of its {k4_b:.4f} ms bound), plain {k4_plain:.3f} ms, conv1d "
+          f"{k4_lib:.4f} ms (CUDA events; {card})")
+    if parent:
+        # the parent checkout's K3 and K4 beside this one's, in turns
+        for root in (parent, HERE, HERE, parent):
+            r = fir_times_of(root)
+            f, fd, rs = (min(r[k]) for k in ("fir_ms", "fir_device_taps_ms", "resample_ms"))
+            print(f"  {'parent' if root == parent else 'this tree'} ({root}): fir_filter "
+                  f"{f:.4f} ms ({k3_b / f:.0%} of bound; taps as a CUDA tensor {fd:.4f} ms), "
+                  f"polyphase_resample {rs:.4f} ms ({k4_b / rs:.0%} of bound) (best of 3 x 20, "
+                  f"CUDA events; {card})")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -103,8 +103,8 @@ def library() -> ctypes.CDLL:
     lib.gwt_viterbi_decode_segments.restype = i32
     lib.gwt_fir.argtypes = [vp, vp, vp, i64, i64, i64, i32, vp]
     lib.gwt_fir.restype = i32
-    lib.gwt_polyphase_resample.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64, i64,
-                                           i32, vp]
+    lib.gwt_polyphase_resample.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64, i64, i64,
+                                           i64, i64, i64, i32, i32, vp]
     lib.gwt_polyphase_resample.restype = i32
     lib.gwt_error_string.argtypes = [i32]
     lib.gwt_error_string.restype = ctypes.c_char_p

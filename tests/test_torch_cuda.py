@@ -259,6 +259,80 @@ def test_resample_kernel_matches_plain(dev, interp, decim, shape, cplx):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("n_taps", [1, 65, 256, 257, 1000])
+@pytest.mark.parametrize("n", [2047, 2048, 2049, 4097])
+def test_fir_kernel_at_tile_edges_and_tap_capacity(dev, n, n_taps, cplx):
+    """Rows one short of, at, one past the 2048-output tile and past two
+    tiles; taps up to one 256-tap chunk and past it (more chunks through
+    shared memory). atol 2e-4, taps at unit energy."""
+    taps = (np.random.default_rng(n_taps).standard_normal(n_taps) / np.sqrt(n_taps)).astype(
+        np.float32)
+    x = _rand((3, n), n + n_taps, cplx).to(dev)
+    for h in (taps, torch.from_numpy(taps).to(dev)):
+        before = k34.fir_filter.launches
+        got = k34.fir_filter(x, h)
+        torch.cuda.synchronize()
+        assert k34.fir_filter.launches == before + 1
+        torch.testing.assert_close(got, k34.fir_filter_plain(x, taps), atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_fir_kernel_unaligned_rows(dev, cplx):
+    """Rows that start off a 16-byte boundary take one-element copies."""
+    taps = np.random.default_rng(3).standard_normal(65).astype(np.float32) / 8
+    flat = _rand((3 * 5001 + 1,), 4, cplx).to(dev)
+    x = flat[1:].view(3, 5001)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    torch.testing.assert_close(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps),
+                               atol=2e-4, rtol=0)
+
+
+def test_fir_kernel_past_65535_rows(dev):
+    taps = np.random.default_rng(5).standard_normal(65).astype(np.float32) / 8
+    x = _rand((70_000, 40), 5, True).to(dev)
+    torch.testing.assert_close(k34.fir_filter(x, taps), k34.fir_filter_plain(x, taps),
+                               atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("interp,decim", [(3, 4), (1, 2), (2, 1)])
+@pytest.mark.parametrize("n", [2047, 2048, 2049, 4097, 2730, 2731, 2732, 5462])
+def test_resample_kernel_at_tile_edges(dev, n, interp, decim, cplx):
+    """Input rows and output rows (2730-2732 and 5462 give 2048, 2049 and
+    4097 outputs at 3/4) around the 2048-output tile; atol 2e-4."""
+    taps = ops.design_lowpass(interp, decim)
+    x = _rand((3, n), n + interp, cplx).to(dev)
+    for h in (taps, torch.from_numpy(taps).to(dev)):
+        before = k34.polyphase_resample.launches
+        got = k34.polyphase_resample(x, interp, decim, h)
+        torch.cuda.synchronize()
+        assert k34.polyphase_resample.launches == before + 1
+        torch.testing.assert_close(got, k34.polyphase_resample_plain(x, interp, decim, taps),
+                                   atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("interp,decim,tpp", [(1, 96, 12), (1, 5000, 12), (3, 4, 16),
+                                              (7, 5, 9), (1, 2, 7000)])
+def test_resample_kernel_small_tiles_and_other_phase_lengths(dev, interp, decim, tpp, cplx):
+    """Ratios whose span shrinks the tile (1/96, 1/5000), phase rows other
+    than 12 (the generic loop), and 7000 taps a phase, which outgrow half
+    the span's room and go in restaged passes; atol 2e-4."""
+    taps = ops.design_lowpass(interp, decim, tpp)
+    x = _rand((2, 20_000), decim + tpp, cplx).to(dev)
+    got = k34.polyphase_resample(x, interp, decim, taps)
+    torch.testing.assert_close(got, k34.polyphase_resample_plain(x, interp, decim, taps),
+                               atol=2e-4, rtol=0)
+
+
+def test_resample_kernel_past_65535_rows(dev):
+    taps = ops.design_lowpass(3, 4)
+    x = _rand((70_000, 50), 6, True).to(dev)
+    torch.testing.assert_close(k34.polyphase_resample(x, 3, 4, taps),
+                               k34.polyphase_resample_plain(x, 3, 4, taps), atol=2e-4, rtol=0)
+
+
 def test_resample_kernel_past_the_int32_index_range(dev):
     """25001/25000 on a 200 000-sample tone: j * M passes 2**31 at output
     85 900; kernel = plain (atol 2e-4) and = the analytic tone (1e-3)."""

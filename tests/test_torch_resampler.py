@@ -165,3 +165,136 @@ def test_wrappers_use_the_plain_version_only_for_cpu_tensors(kernel):
     assert fn.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         fn(x.to("meta"), *args)
+
+
+# K4's index scheme (csrc/fir.cu): the phase-major tap table and the tile
+# walk, modelled on the CPU.
+
+_RATIOS = [(1, 2), (2, 1), (3, 4), (4, 3), (5, 2), (2, 3), (25001, 25000)]
+THREADS = 256       # csrc/fir.cu kRsThreads
+
+
+def _tile_walk(n_out: int, interp: int, decim: int, n_taps: int, tile: int,
+              threads: int = THREADS) -> tuple[torch.Tensor, torch.Tensor]:
+    """(t0, base) of every output of a row as K4 (csrc/fir.cu) forms them,
+    int64: a
+    tile's origin by one division, q0 = (j0*M + c) // L and r0; a thread's
+    first output (d = thread < tile) by one more on r0 + d*M; each of its
+    later outputs, ``threads`` on, by the step (threads*M // L, threads*M %
+    L) with a carry, as an offset from q0 that stays within 32 bits. Equal
+    to the direct form's (t0, base) for every output."""
+    c = (n_taps - 1) // 2
+    j0 = torch.arange(0, n_out, tile, dtype=torch.int64)
+    q0 = (j0 * decim + c) // interp
+    r0 = (j0 * decim + c) - q0 * interp
+    step_q, step_r = threads * decim // interp, threads * decim % interp
+    d = torch.arange(min(threads, tile), dtype=torch.int64)
+    u = r0[:, None] + d[None, :] * decim
+    q, r = u // interp, u % interp
+    t0 = torch.full((n_out,), -1, dtype=torch.int64)
+    base = torch.full((n_out,), -1, dtype=torch.int64)
+    for i in range(-(-tile // threads)):
+        dd = d + i * threads
+        j = j0[:, None] + dd[None, :]
+        live = (dd[None, :] < tile) & (j < n_out)
+        t0[j[live]] = r[live]
+        base[j[live]] = (q0[:, None] + q)[live]
+        q, r = q + step_q, r + step_r
+        carry = (r >= interp).long()
+        q, r = q + carry, r - carry * interp
+    return t0, base
+
+
+def _table_resample(x, interp, decim, taps):
+    """K4's sum: y[j] = sum_{k < kp} hp[t0, k] * x[base - k], x zero outside
+    the row, in k order, with (t0, base) from the direct form."""
+    h = torch.from_numpy(taps)
+    hp = fir.phase_table(h, interp)
+    n, kp = x.shape[-1], hp.shape[1]
+    n_out = fir.out_len(n, interp, decim)
+    up = torch.arange(n_out, dtype=torch.int64) * decim + (h.numel() - 1) // 2
+    t0 = up % interp
+    base = (up - t0) // interp
+    xz = torch.cat([x.new_zeros(x.shape[:-1] + (kp,)), x, x.new_zeros(x.shape[:-1] + (1,))], -1)
+    y = x.new_zeros(x.shape[:-1] + (n_out,))
+    for k in range(kp):
+        src = (base - k).clamp(-1, n) + kp       # -1 and n read the zero pads
+        y += hp[t0, k] * xz.index_select(-1, src)
+    return y
+
+
+@pytest.mark.parametrize("interp,decim", _RATIOS)
+def test_phase_table_reproduces_the_plain_resampler(interp, decim):
+    """The zero-padded (L, kp) table summed in k order gives
+    polyphase_resample_plain's output bit for bit."""
+    taps = ops.design_lowpass(interp, decim)
+    x = torch.from_numpy(_rand((2, 3000), interp % 97 + decim % 89, True))
+    hp = fir.phase_table(torch.from_numpy(taps), interp)
+    assert hp.shape == (interp, -(-taps.size // interp))
+    assert torch.equal(_table_resample(x, interp, decim, taps),
+                       fir.polyphase_resample_plain(x, interp, decim, taps))
+
+
+def _direct_indices(n_out, interp, decim, n_taps):
+    up = torch.arange(n_out, dtype=torch.int64) * decim + (n_taps - 1) // 2
+    t0 = up % interp
+    return t0, (up - t0) // interp
+
+
+@pytest.mark.parametrize("interp,decim", _RATIOS)
+@pytest.mark.parametrize("tile", [2048, 1000, 256, 100, 1])
+def test_tile_walk_matches_the_direct_form(interp, decim, tile):
+    """Every output of whole and ragged tiles gets the direct form's
+    (t0, base) from one division a tile, one a thread and 32-bit steps."""
+    n_taps = 12 * interp
+    n_out = 3 * tile + 77
+    t0, base = _tile_walk(n_out, interp, decim, n_taps, tile)
+    want = _direct_indices(n_out, interp, decim, n_taps)
+    assert torch.equal(t0, want[0]) and torch.equal(base, want[1])
+
+
+def test_tile_walk_past_the_int32_index_range():
+    """25001/25000 past output 85 900, where j*M passes 2**31: the tile
+    origin is 64-bit, the offsets within a tile 32-bit."""
+    interp, decim, n_taps = 25001, 25000, 12 * 25001
+    n_out = 95_000
+    _, _, tile, _, _ = fir.resample_geometry(n_taps, interp, decim, 8)
+    t0, base = _tile_walk(n_out, interp, decim, n_taps, tile)
+    want = _direct_indices(n_out, interp, decim, n_taps)
+    assert (n_out - 1) * decim >= 2**31
+    assert torch.equal(t0, want[0]) and torch.equal(base, want[1])
+    # what the kernel keeps in 32 bits: the offset within a tile, the step
+    j0 = torch.arange(n_out) // tile * tile
+    q0 = (j0 * decim + (n_taps - 1) // 2) // interp
+    assert int((base - q0).max()) < 2**31 and THREADS * decim < 2**31
+
+
+@pytest.mark.parametrize("interp,decim", _RATIOS + [(1, 96), (1, 5000), (7, 1)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_resample_geometry_fits_the_span(interp, decim, itemsize):
+    """The staged span of any tile (at most its last base less its first,
+    plus a pass's taps and the alignment slack) fits the bytes kept."""
+    n_taps = 12 * interp
+    kp, kc, tile, span_bytes, in_smem = fir.resample_geometry(n_taps, interp, decim, itemsize)
+    assert kp == 12 and kc == 12 and 1 <= tile <= fir.RS_MAX_TILE
+    assert span_bytes % 16 == 0 and span_bytes <= fir.RS_SPAN_BYTES
+    assert in_smem == (interp * kp * 4 <= fir.RS_TABLE_BYTES)
+    n_out = 4 * tile
+    _, base = _direct_indices(n_out, interp, decim, n_taps)
+    widest = int((base[tile - 1::tile] - base[::tile]).max())
+    v = 16 // itemsize
+    assert ((widest + kc + v - 1) // v * v + v) * itemsize <= span_bytes
+
+
+@pytest.mark.parametrize("interp", [1, 3, 25001])
+def test_phase_table_of_tensor_taps_is_cached_until_they_change(interp):
+    """Tensor taps: the second call reuses the first call's table (no copy,
+    no launch); an in-place change to the taps builds it anew."""
+    h = torch.from_numpy(ops.design_lowpass(interp, 4))
+    cpu = torch.device("cpu")
+    first = fir._phase_table_of(h, interp, cpu)
+    assert torch.equal(first, fir.phase_table(h, interp))
+    assert fir._phase_table_of(h, interp, cpu) is first
+    h.mul_(2)
+    again = fir._phase_table_of(h, interp, cpu)
+    assert again is not first and torch.equal(again, fir.phase_table(h, interp))
