@@ -57,27 +57,60 @@ holds each hand-written kernel against its plain PyTorch version:
  11. the same on a 2x-oversampled capture skewed by +40 ppm with
      ``FrontendConfig(resample=(1, 2), ppm=40.0)`` (decimation and clock
      trim in torch ops); 192 of 192 frames bit-exact;
- 12. times the resident front-end correction pass (CUDA events) for
+ 12. runs the ``AdaptiveStreamExecutor`` (SIGNAL-steered reception) at
+     the bench's adaptive shape (1 channel x 4 blocks x 262 144 samples,
+     sc8, 128 slots a block) on bench.py's frames/s traffic, made by the
+     port's TX on the card: a dense stream of 50-byte PSDUs at each MCS
+     (447 to 511 frames) and the mixed stream, which rotates through the
+     8 rates and carries MPDUs of ``mac.frame_batch``; every frame back
+     bit-exact at its own rate, the mixed stream's FCS checked on the
+     card (``mac.check_fcs_batch``, false after one flipped byte); every
+     kernel call of each run is kept and made again through the kernel
+     and its plain version on the same inputs: the detector on (4, 262
+     960) with 128 slots and the owned search bounds as in phase 3, stage
+     A's 512 x 24 SIGNAL trellises and each stage-B bucket's SIGNAL and
+     payload trellises bit-exact; prints frames/s of timed runs on fresh
+     noise (host clock around ``torch.cuda.synchronize``), the 9 streams
+     in turns for 3 rounds (median and spread), with the Tracer's stage
+     seconds, and a profile of one mixed run;
+ 13. the mixed stream again, from a 4/3-rate capture through
+     ``FrontendConfig(resample=(3, 4))`` (K4 once): every frame bit-exact,
+     K4 on the 1-row capture within 2e-4 of its plain version;
+ 14. the adaptive executor on a small mixed stream (4 x 16 384 samples)
+     and ``AdaptiveReceiver`` on its first 32 768 samples, the card's
+     results against the port's CPU path (exact fields, cfo within 1e-5,
+     snr within 1e-3);
+ 15. the trackers: ``equalize`` with LMS, COMB and STA on the card within
+     1e-4 of the CPU on the echo frame of tests/test_equalizer.py (64-QAM
+     3/4, 400 bytes, an 8-sample echo by ``channel.multipath`` that grows
+     and rotates), which LMS decodes bit-exact and LS does not; the
+     adaptive executor with ``PhyConfig(chan_est=LMS)`` against the CPU;
+ 16. times the resident front-end correction pass (CUDA events) for
      decim2, ppm40 and general 3/4 at 2**22 padded outputs, left pad 256
      (the JAX bench's shape), in input Msamples/s;
- 13. times each kernel (CUDA events) beside its plain version and bound:
+ 17. times each kernel (CUDA events) beside its plain version and bound:
      dense K1, the fused detector and dense K1 plus the torch glue it
      replaces, the segmented K2 and the same trellises as two one-segment
-     launches, K2's chain floor, K3 and K4 with their share of bound and
+     launches, K2's chain floor, the detector, stage A's one-segment K2
+     (the ``viterbi_decode`` row) and a stage-B bucket's K2 at the
+     adaptive path's shapes, K3 and K4 with their share of bound and
      their conv1d yardsticks, K3 with its taps given as numpy and as a
      CUDA tensor (with ``--parent``, also the other checkout's K3 and K4
      in turns with this tree's, each in a process of its own); then
      prints one JSON line of kernel timings, bounds and launch counts.
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
-phase 13's shapes (three rounds of 20 calls, CUDA events) and prints one
+phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
 JSON line; two checkouts are compared by running it in turns (A, B, B,
 A). It builds the kernels into that checkout's own build directory.
 
-Launch counts are set to 0 just before each main-path run (7 to 11) and
+Launch counts are set to 0 just before each main-path run (7 to 13) and
 read just after; launches made to compare or time a kernel do not count.
-An executor step launches the fused detector once and the segmented
-Viterbi kernel once, and dense K1 not at all.
+A fixed-plan executor step launches the fused detector once and the
+segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
+launches the fused detector once and the one-segment Viterbi kernel once
+(stage A's SIGNAL trellises), and stage B the segmented one once a
+(rate, length) bucket (1 on a dense stream, 8 on the mixed one).
 The last line of stdout is {"ok": true, "device": {...}}. Any failure
 exits non-zero. Without CUDA, or without the port package beside this
 file, it exits non-zero and prints no result.
@@ -86,6 +119,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -109,6 +143,13 @@ FRAMES_PER_BLOCK = 3
 # the bench's front-end pass shape (bench.py: n_out_pad, left pad 256)
 FE_OUT_PAD = 1 << 22
 FIR_TAPS = 65
+
+# the bench's adaptive shape (bench.py: BLOCK, DENSE_BLOCKS,
+# DENSE_MAX_FRAMES): one channel of 4 blocks, 128 slots a block, sc8
+ADAPTIVE_SHARDS = 4
+ADAPTIVE_SLOTS = 128
+ADAPTIVE_ROUNDS = 3                  # timed runs of each stream, in turns
+MAC_PAYLOAD = PSDU_LEN - 28          # + MAC header and FCS = a 50-byte PSDU
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -223,6 +264,153 @@ def max_err(got, want) -> float:
     return (got - want).abs().max().item()
 
 
+class _Recorded:
+    """A kernel wrapper that keeps the arguments of each call. Its
+    ``launches`` is the wrapper's own, which the wrapper increments
+    through its module attribute, that is through this object."""
+
+    def __init__(self, fn, log: list):
+        self.fn, self.log = fn, log
+
+    def __call__(self, *args, **kw):
+        self.log.append((args, kw))
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def recording(*targets):
+    """Within the block, each (module, name) of targets keeps the
+    arguments of every call made through that module attribute, and runs
+    as before (its launch count included). Yields {name: [(args, kwargs),
+    ...]}."""
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, fn in saved:
+        setattr(mod, name, _Recorded(fn, calls[name]))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def hold_detect(args, label: str):
+    """The fused detector on args (x, K, threshold, min_plateau, search_lo,
+    search_hi) against its plain version (starts and valid exact, cfo
+    within 1e-4, ratio within 1e-3) and bit-identical to dense K1 plus the
+    plain glue; returns (max |dcfo|, max |dratio|, valid)."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+
+    got = k1.sync_detect(*args)
+    want = k1.sync_detect_plain(*args)
+    a, _, c = k1.sync_stats(args[0])
+    glue = k1.detect_from_stats(a, c, *args[1:])
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"sync_detect != plain on {label}: starts {got[0].tolist()} vs "
+          f"{want[0].tolist()}")
+    errs = max_err(got[2], want[2]), max_err(got[3], want[3])
+    check(errs[0] <= 1e-4 and errs[1] <= 1e-3,
+          f"sync_detect != plain on {label}: max |dcfo|, |dratio| = {errs}")
+    check(all(torch.equal(g, w) for g, w in zip(got, glue)),
+          f"sync_detect is not bit-identical to dense K1 + glue on {label}")
+    return errs[0], errs[1], int(got[1].sum())
+
+
+def hold_recorded(calls, label: str) -> dict:
+    """Each kernel call that a main-path run made (``recording``) again,
+    through the kernel and its plain version on the same inputs: the
+    detector as ``hold_detect``, K2 bit-exact, K4 within 2e-4. Returns
+    {kernel: (max error, [input shapes])}."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+
+    out = {}
+
+    def note(name, err, shape):
+        e, shapes = out.get(name, (0.0, []))
+        out[name] = (max(e, err), shapes + [shape])
+
+    for args, kw in calls.get("sync_detect", []):
+        e_cfo, e_ratio, _ = hold_detect(args, f"{label}: {tuple(args[0].shape)}, K {args[1]}")
+        note("sync_detect", max(e_cfo, e_ratio), (tuple(args[0].shape), args[1]))
+    for args, kw in calls.get("viterbi_decode", []):
+        got, want = k2.viterbi_decode(*args, **kw), k2.viterbi_decode_plain(*args, **kw)
+        check(torch.equal(got, want), f"viterbi_decode != plain on {label}: "
+                                      f"{tuple(args[0].shape)}, {(got != want).sum().item()} "
+                                      f"bits differ")
+        note("viterbi_decode", 0.0, tuple(args[0].shape))
+    for args, kw in calls.get("viterbi_decode_many", []):
+        got = k2.viterbi_decode_many(*args, **kw)
+        want = k2.viterbi_decode_many_plain(*args, **kw)
+        shape = [tuple(v.shape) for v in args[0]]
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"viterbi_decode_many != plain on {label}: {shape}")
+        note("viterbi_decode_many", 0.0, shape)
+    for args, kw in calls.get("polyphase_resample", []):
+        e = max_err(k34.polyphase_resample(*args, **kw), k34.polyphase_resample_plain(*args, **kw))
+        check(e <= 2e-4, f"polyphase_resample != plain on {label}: {tuple(args[0].shape)} at "
+                         f"{args[1]}/{args[2]}: {e:.3g} (2e-4)")
+        note("polyphase_resample", e, tuple(args[0].shape))
+    return out
+
+
+def device_profile(fn):
+    """Runs fn() once under torch.profiler (CPU and CUDA activity) and
+    returns (wall ms, device busy ms, kernels by name {name: [ms, ...]},
+    layer spans {range: [span on the device timeline, busy in it, count]}
+    of the ``executor.*`` ranges, summed over a range's occurrences,
+    number of device activities)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_wall = (time.perf_counter() - t_wall) * 1e3
+    # device activities: kernels and copies; the executor.* ranges also
+    # appear on the device timeline (as spans), so they are kept apart
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in dev_events if not e.name.startswith("executor.")]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    spans: dict[str, list] = {}
+    for e in dev_events:
+        if e.name.startswith("executor."):
+            r = e.time_range
+            acc = spans.setdefault(e.name, [0.0, 0.0, 0])
+            acc[0] += r.elapsed_us() / 1e3
+            acc[1] += sum(k.time_range.elapsed_us() for k in kern
+                          if r.start <= k.time_range.start < r.end) / 1e3
+            acc[2] += 1
+    spans = {k: [round(v[0], 3), round(v[1], 3), v[2]] for k, v in spans.items()}
+    by_name: dict[str, list] = {}
+    for e in kern:
+        by_name.setdefault(e.name[:60], []).append(e.time_range.elapsed_us() / 1e3)
+    return t_wall, busy, by_name, spans, len(kern)
+
+
+def print_profile(label: str, prof) -> None:
+    t_wall, busy, by_name, spans, n_act = prof
+    print(f"profiled {label}: {t_wall:.3f} ms wall, {busy:.3f} ms device busy "
+          f"({100 * (1 - busy / t_wall):.1f}% idle), {n_act} device activities; "
+          f"layers [device span ms, device busy ms, ranges] {json.dumps(spans)}")
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
+
+
 def make_stream(tx, n: int, positions, n_frames: int, rng, device):
     """One channel: n_frames port-TX bursts at positions in seeded noise."""
     frames = rng.integers(0, 256, (n_frames, PSDU_LEN), dtype=np.uint8)
@@ -286,6 +474,261 @@ def burst_rows(n: int, edges_per_row, min_plateau: int, seed: int):
     return x.astype(np.complex64)
 
 
+def fresh(x: np.ndarray, seed: int) -> np.ndarray:
+    """A byte-distinct copy of a stream for a timed run (bench.py _fresh):
+    fresh noise at 2e-3, 48 dB below the bursts."""
+    rng = np.random.default_rng(7000 + seed)
+    return (x + 2e-3 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+            ).astype(np.complex64)
+
+
+def adaptive_stream(tx, mac, mcs, n: int, rng, device):
+    """bench.py's frames/s traffic, one channel of n samples: 50-byte
+    PSDUs back to back at spacing max(burst + 500, block/128 + 1) in noise
+    0.01, made by the port's TX on the card. mcs: one rate (a dense
+    stream), or None for the mixed stream, which rotates through the 8
+    rates frame by frame and carries MPDUs (22-byte payloads framed by
+    mac.frame_batch). Returns ((1, n) stream, (F, 50) PSDUs, (F,) rates)."""
+    import torch
+
+    rates = [mcs] if mcs is not None else list(range(8))
+    burst = max(tx.tx_plan(m, PSDU_LEN).n_samples for m in rates)
+    spacing = max(burst + 500, BLOCK // ADAPTIVE_SLOTS + 1)
+    positions = np.arange(300, n - burst - 800, spacing)
+    mcs_seq = np.arange(positions.size) % len(rates) if mcs is None else np.full(
+        positions.size, mcs)
+    if mcs is None:
+        psdus = mac.frame_batch(rng.integers(0, 256, (positions.size, MAC_PAYLOAD),
+                                             dtype=np.uint8))
+    else:
+        psdus = rng.integers(0, 256, (positions.size, PSDU_LEN), dtype=np.uint8)
+    x = np.zeros(n, np.complex64)
+    for m in rates:
+        sel = np.flatnonzero(mcs_seq == m)
+        bursts = tx.transmit(psdus[sel], m, scrambler_seed=torch.from_numpy(sel % 127 + 1),
+                             device=device).cpu().numpy()
+        for pos, b in zip(positions[sel], bursts):
+            x[pos: pos + b.size] += 0.5 * b
+    x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    return x[None].astype(np.complex64), psdus, mcs_seq
+
+
+def same_records(got, want, label: str) -> None:
+    """The card's frame records against the CPU path's: exact fields, cfo
+    within 1e-5, snr within 1e-3."""
+    check(len(got) == len(want), f"{label}: {len(got)} records on the card, {len(want)} on "
+                                 f"the CPU")
+    for g, w in zip(got, want):
+        check((g.channel, g.global_start, g.rate_idx, g.length, g.parity_ok)
+              == (w.channel, w.global_start, w.rate_idx, w.length, w.parity_ok)
+              and np.array_equal(g.psdu, w.psdu) and abs(g.cfo - w.cfo) <= 1e-5
+              and abs(g.snr_db - w.snr_db) <= 1e-3,
+              f"{label}: the card's record {g} differs from the CPU's {w}")
+
+
+def adaptive_phases(dev, card: str, reset, counts) -> dict:
+    """Phases 12-15: the SIGNAL-steered path at the bench's adaptive shape,
+    through the 3/4 front-end, against the CPU path, and with the trackers.
+    Returns the adaptive frames/s by stream (median of the rounds), the
+    MCS-2 dense run's launches and kernel inputs, and the kernels held
+    against their plain versions ({kernel: (max error, input shapes)})."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.channel import model as channel
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+        ChannelEstimator,
+        ExecutorConfig,
+        FrontendConfig,
+        PhyConfig,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+        AdaptiveReceiver,
+        AdaptiveStreamExecutor,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import resampler
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, mac, rx, tx
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
+
+    span = ADAPTIVE_SHARDS * BLOCK
+    acfg = ExecutorConfig(block_size=BLOCK, time_shards=ADAPTIVE_SHARDS,
+                          max_frames_per_block=ADAPTIVE_SLOTS, wire_format="sc8")
+    # the module attributes through which the path reaches its kernels
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"),
+               (resampler, "polyphase_resample"))
+    held: dict = {}             # kernel -> (max error, input shapes) over the runs
+
+    def run_checked(aex, x, psdus, mcs_seq, label, n_buckets, also=()):
+        """One run of the main path, launches counted from 0: every frame
+        back bit-exact at its own rate; a detector and a SIGNAL Viterbi
+        launch a step, one payload launch a dispatched bucket, no dense K1.
+        Then every kernel call of the run again, against its plain version
+        on the same inputs (after the counts are read)."""
+        reset()
+        t0 = time.perf_counter()
+        with recording(*targets) as calls:
+            recs = aex.run(x)
+        launches = counts()
+        dt = time.perf_counter() - t0
+        got = {(r.rate_idx, tuple(r.psdu)) for r in recs if r.parity_ok}
+        missing = [i for i, (m, f) in enumerate(zip(mcs_seq, psdus))
+                   if (int(m), tuple(f)) not in got]
+        check(not missing, f"{label}: frames {missing[:10]} (of {len(psdus)}) not recovered "
+                           f"at their rates")
+        steps = len(range(0, aex.effective_len(x.shape[1]), span))
+        # every candidate gets a record; a step dispatches one bucket a
+        # (rate, length) among its candidates
+        buckets = len({(r.global_start // span, r.rate_idx, r.length) for r in recs})
+        check(launches["sync_detect"] == steps and launches["viterbi_decode"] == steps
+              and launches["sync_stats"] == 0 and launches["viterbi_decode_many"] == buckets
+              and buckets == n_buckets and all(launches[k] == v for k, v in also),
+              f"{label}: launches {launches} for {steps} steps and {buckets} buckets "
+              f"(expected {n_buckets})")
+        for name, (e, shapes) in hold_recorded(calls, label).items():
+            e0, s0 = held.get(name, (0.0, []))
+            held[name] = (max(e0, e), s0 + shapes)
+        return recs, launches, dt, calls
+
+    # -- 12. adaptive executor at the bench's shape ------------------------
+    rng = np.random.default_rng(12)
+    aex = AdaptiveStreamExecutor(exec_cfg=acfg, device=dev)
+    streams = {}
+    mixed = None
+    for mcs in list(range(8)) + [None]:
+        label = f"adaptive MCS {mcs}" if mcs is not None else "adaptive mixed"
+        x, psdus, mcs_seq = adaptive_stream(tx, mac, mcs, span, rng, dev)
+        recs, launches, warm, calls = run_checked(aex, x, psdus, mcs_seq, label,
+                                                  1 if mcs is not None else 8)
+        streams[label] = (x, psdus, mcs_seq, len(recs), warm, launches)
+        if mcs == MCS:
+            # a dense stream's kernel inputs and launches, for phase 17
+            main = {"launches": launches, **{k: calls[k][0][0] for k in (
+                "sync_detect", "viterbi_decode", "viterbi_decode_many")}}
+        if mcs is None:
+            mixed = (x, psdus, mcs_seq)
+            # the FCS of every decoded MPDU, on the card; one flipped byte
+            mpdus = torch.from_numpy(np.stack([r.psdu for r in recs if r.parity_ok])).to(dev)
+            fcs_ok = mac.check_fcs_batch(mpdus)
+            mpdus[:, 30] ^= 0x20
+            fcs_bad = mac.check_fcs_batch(mpdus)
+            check(bool(fcs_ok.all()) and not bool(fcs_bad.any()),
+                  f"{label}: FCS on the card {int(fcs_ok.sum())}/{len(fcs_ok)} true, "
+                  f"{int(fcs_bad.sum())} true after a flipped byte")
+            print(f"{label}: FCS checked on the card: {len(fcs_ok)}/{len(fcs_ok)} MPDUs "
+                  f"valid, none after one flipped byte")
+    shapes = {k: sorted({str(s) for s in v[1]}) for k, v in held.items()}
+    print(f"adaptive runs: every kernel call held against its plain version on the same "
+          f"inputs: max error {json.dumps({k: v[0] for k, v in held.items()})} (detector cfo "
+          f"1e-4 and ratio 1e-3, starts and valid exact; K2 bit-exact); inputs "
+          f"{json.dumps(shapes)}")
+
+    # timed runs on fresh noise, the 9 streams in turns, ADAPTIVE_ROUNDS
+    # rounds: the spread of one stream within a call
+    fps_runs = {label: [] for label in streams}
+    for rnd in range(ADAPTIVE_ROUNDS):
+        for i, (label, (x, psdus, mcs_seq, *_)) in enumerate(streams.items()):
+            xt = fresh(x, 10 + i + 100 * rnd)
+            aex.tracer = tracing.Tracer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs_t = aex.run(xt)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {(r.rate_idx, tuple(r.psdu)) for r in recs_t if r.parity_ok}
+            check(all((int(m), tuple(f)) in got for m, f in zip(mcs_seq, psdus)),
+                  f"{label}: the timed run lost frames")
+            fps_runs[label].append(len(psdus) / dt)
+            stages = {k: round(v.seconds * 1e3, 3) for k, v in aex.tracer.report().items()}
+            print(f"{label}, round {rnd}: {dt * 1e3:.1f} ms, {len(psdus) / dt:.0f} frames/s; "
+                  f"stage ms {json.dumps(stages)}")
+    fps = {}
+    for label, (x, psdus, _, n_recs, warm, launches) in streams.items():
+        runs = fps_runs[label]
+        fps[label] = float(np.median(runs))
+        print(f"{label}: {len(psdus)} frames in {tuple(x.shape)} sc8, {n_recs} records, "
+              f"bit-exact at their rates; warm run {warm * 1e3:.1f} ms; timed runs on fresh "
+              f"noise in turns {[round(v) for v in runs]} frames/s, median {fps[label]:.0f}, "
+              f"spread {100 * (max(runs) - min(runs)) / fps[label]:.0f} %; launches "
+              f"{json.dumps(launches)} ({card})")
+    x, psdus, mcs_seq = mixed
+    print_profile("adaptive mixed run", device_profile(lambda: aex.run(x)))
+
+    # -- 13. the mixed stream through the general front-end (3/4) ----------
+    up4 = fft_oversample(torch.from_numpy(x).to(dev), 4)
+    cap = up4[:, ::3].cpu().numpy()
+    del up4
+    fex = AdaptiveStreamExecutor(exec_cfg=dataclasses.replace(
+        acfg, frontend=FrontendConfig(resample=(3, 4))), device=dev)
+    n_held = len(held.get("polyphase_resample", (0, []))[1])
+    recs, launches, dt, _ = run_checked(fex, cap, psdus, mcs_seq,
+                                        "adaptive mixed, resample=(3, 4)", 8,
+                                        also=(("polyphase_resample", 1),))
+    k4_err, k4_shapes = held.get("polyphase_resample", (0.0, []))
+    check(len(k4_shapes) == n_held + 1, "adaptive mixed, resample=(3, 4): K4 not held")
+    print(f"adaptive mixed, resample=(3, 4), input {cap.shape}: {len(psdus)}/{len(psdus)} "
+          f"frames bit-exact ({dt:.2f} s wall); K4 on {k4_shapes[-1]} within {k4_err:.3g} of "
+          f"its plain version (2e-4); launches {json.dumps(launches)}")
+
+    # -- 14. the card against the CPU path ---------------------------------
+    small, s_psdus, s_seq = adaptive_stream(tx, mac, None, 4 * 16384, rng, dev)
+    scfg = ExecutorConfig(block_size=16384, time_shards=4, max_frames_per_block=8,
+                          wire_format="sc8")
+    got = AdaptiveStreamExecutor(exec_cfg=scfg, device=dev).run(small)
+    same_records(got, AdaptiveStreamExecutor(exec_cfg=scfg, device="cpu").run(small),
+                 "adaptive small mixed")
+    check({(int(m), tuple(f)) for m, f in zip(s_seq, s_psdus)}
+          <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok},
+          "adaptive small mixed: frames lost")
+    arx = dict(max_psdu=256, max_frames=8)
+    g_frames = AdaptiveReceiver(device=dev, **arx).receive(small[0, :32768])
+    c_frames = AdaptiveReceiver(device="cpu", **arx).receive(small[0, :32768])
+    check(len(g_frames) == len(c_frames) >= 6 and all(
+        (g.start, g.rate_idx, g.length) == (c.start, c.rate_idx, c.length)
+        and np.array_equal(g.psdu, c.psdu) and abs(g.cfo - c.cfo) <= 1e-5
+        for g, c in zip(g_frames, c_frames)),
+        f"AdaptiveReceiver: the card's {len(g_frames)} frames differ from the CPU's "
+        f"{len(c_frames)}")
+    print(f"adaptive executor on {small.shape} (8 rates, sc8): {len(got)} records equal the "
+          f"CPU path's; AdaptiveReceiver on 32768 samples: {len(g_frames)} frames equal the "
+          f"CPU path's")
+
+    # -- 15. the trackers on the card ---------------------------------------
+    # tests/test_equalizer.py's integration frame: 64-QAM 3/4, 400 bytes,
+    # an 8-sample echo (channel.multipath) that grows to 0.4 and rotates
+    erng = np.random.default_rng(9)
+    frame = erng.integers(0, 256, (1, 400), dtype=np.uint8)
+    burst = tx.transmit(frame, 7, device=dev)
+    nb = burst.shape[-1]
+    gain = torch.from_numpy((np.linspace(0.0, 0.4, nb) * np.exp(
+        2j * np.pi * np.arange(nb) / 6000.0)).astype(np.complex64)).to(dev)
+    y = burst + gain * channel.multipath(burst, [0.0] * 8 + [1.0])
+    y = y + torch.from_numpy((1e-3 * (erng.standard_normal(nb) + 1j * erng.standard_normal(
+        nb))).astype(np.complex64)).to(dev)
+    plan = tx.tx_plan(7, 400)
+    ltf1, ltf2, spectra = rx.frame_spectra(y, plan.n_sym, 0)
+    h0 = equalizer.ls_estimate(ltf1, ltf2)
+    eq_err = 0.0
+    for algo in (ChannelEstimator.LMS, ChannelEstimator.COMB, ChannelEstimator.STA):
+        for g, c in zip(equalizer.equalize(spectra, h0, 0, algo, 7),
+                        equalizer.equalize(spectra.cpu(), h0.cpu(), 0, algo, 7)):
+            e = max_err(g.cpu(), c)
+            check(e <= 1e-4, f"equalize {algo.name} on the card: {e:.3g} from the CPU (1e-4)")
+            eq_err = max(eq_err, e)
+    errs = {a.name: int((rx.decode_aligned(y, plan, algo=a).psdu.cpu().numpy() != frame).sum())
+            for a in (ChannelEstimator.LS, ChannelEstimator.LMS)}
+    check(errs["LMS"] == 0 and errs["LS"] > 50,
+          f"echo frame on the card: byte errors {errs} (LMS must be 0, LS > 50)")
+    lcfg = dict(exec_cfg=scfg, phy_cfg=PhyConfig(chan_est=ChannelEstimator.LMS))
+    same_records(AdaptiveStreamExecutor(device=dev, **lcfg).run(small),
+                 AdaptiveStreamExecutor(device="cpu", **lcfg).run(small),
+                 "adaptive small mixed, LMS")
+    print(f"trackers on the card: equalize LMS/COMB/STA within {eq_err:.3g} of the CPU "
+          f"(1e-4); echo frame byte errors {json.dumps(errs)}; adaptive LMS records equal "
+          f"the CPU path's")
+    return fps, main, held
+
+
 def main() -> None:
     import argparse
 
@@ -293,7 +736,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch + CUDA port.")
     ap.add_argument("--parent", help="another checkout's root: time its K3 and K4 beside "
-                                     "this tree's in phase 13, in turns")
+                                     "this tree's in phase 17, in turns")
     ap.add_argument("--fir-times", metavar="ROOT",
                     help="only time the K3 and K4 of the checkout at ROOT")
     args = ap.parse_args()
@@ -424,29 +867,11 @@ def main() -> None:
         print(f"K1 sync_stats {tuple(x.shape)}: max |da| {errs[0]:.3g}, |dp| {errs[1]:.3g}, "
               f"|dc| {errs[2]:.3g} (atol 2e-4, 2e-4, 1e-3): ok")
 
-    def detect_check(x, k, plateau, lo, hi, label):
-        """The fused detector against its plain version and against dense
-        K1 plus the plain glue; returns (max |dcfo|, max |dratio|, valid)."""
-        got = k1.sync_detect(x, k, thr, plateau, lo, hi)
-        want = k1.sync_detect_plain(x, k, thr, plateau, lo, hi)
-        a, _, c = k1.sync_stats(x)
-        glue = k1.detect_from_stats(a, c, k, thr, plateau, lo, hi)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"sync_detect != plain on {label}: starts {got[0].tolist()} vs "
-              f"{want[0].tolist()}")
-        errs = max_err(got[2], want[2]), max_err(got[3], want[3])
-        check(errs[0] <= 1e-4 and errs[1] <= 1e-3,
-              f"sync_detect != plain on {label}: max |dcfo|, |dratio| = {errs}")
-        check(all(torch.equal(g, w) for g, w in zip(got, glue)),
-              f"sync_detect is not bit-identical to dense K1 + glue on {label}")
-        return errs[0], errs[1], int(got[1].sum())
-
     k1d_err, n_valid = 0.0, {}
     for x, k, lo, hi, label in (
             (blocks, MAX_FRAMES, HALO_LEFT, HALO_LEFT + BLOCK, "executor blocks"),
             (torch.from_numpy(xf).to(dev), 8, 0, None, "flagship block")):
-        e_cfo, e_ratio, n_valid[label] = detect_check(x, k, mp, lo, hi, label)
+        e_cfo, e_ratio, n_valid[label] = hold_detect((x, k, thr, mp, lo, hi), label)
         k1d_err = max(k1d_err, e_cfo, e_ratio)
     check(n_valid["executor blocks"] >= CHANNELS * n_frames and n_valid["flagship block"] >= 4,
           f"sync_detect: valid candidates {n_valid}")
@@ -459,7 +884,7 @@ def main() -> None:
                           (4, 993, None), (4, 0, 992), (4, 0, 993), (4, 991, 994),
                           (4, 1023, 1026), (4, 2976, 7000), (4, 2977, 7001)):
             label = f"burst rows, min_plateau {plateau}, K {k}, search [{lo}, {hi})"
-            e_cfo, e_ratio, _ = detect_check(x, k, plateau, lo, hi, label)
+            e_cfo, e_ratio, _ = hold_detect((x, k, thr, plateau, lo, hi), label)
             k1d_err = max(k1d_err, e_cfo, e_ratio)
         starts = k1.sync_detect(x, 4, thr, plateau)[0].cpu().tolist()
         check(all(starts[r][: len(e)] == [v - (plateau - 1) for v in sorted(e)[:4]]
@@ -670,34 +1095,7 @@ def main() -> None:
           f"{samples / step_ms / 1e3:.1f} Msamples/s (CUDA events, {reps} steps; {card})")
 
     # where one step's device time goes (torch.profiler, CUDA activity)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_wall = time.perf_counter()
-        ex.step(0)
-        torch.cuda.synchronize()
-        t_wall = (time.perf_counter() - t_wall) * 1e3
-    # device activities: kernels and copies; the executor.* ranges also
-    # appear on the device timeline (as spans), so they are kept apart
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern = [e for e in dev_events if not e.name.startswith("executor.")]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    spans = {}                  # layer -> [span on the device timeline, busy in it]
-    for e in dev_events:
-        if e.name.startswith("executor."):
-            r = e.time_range
-            spans[e.name] = [round(r.elapsed_us() / 1e3, 3), round(sum(
-                k.time_range.elapsed_us() for k in kern
-                if r.start <= k.time_range.start < r.end) / 1e3, 3)]
-    by_name: dict[str, list] = {}
-    for e in kern:
-        by_name.setdefault(e.name[:60], []).append(e.time_range.elapsed_us() / 1e3)
-    print(f"profiled step: {t_wall:.3f} ms wall, {busy:.3f} ms device busy "
-          f"({100 * (1 - busy / t_wall):.1f}% idle), {len(kern)} device activities; "
-          f"layers [device span, device busy] (ms) {json.dumps(spans)}")
-    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
-        print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
+    print_profile("step", device_profile(lambda: ex.step(0)))
     del ex
 
     # -- 9. the stand-alone entry points ---------------------------------
@@ -755,7 +1153,9 @@ def main() -> None:
           f"launches {json.dumps(ppm_launches)}")
     del ex_ppm, cap_ppm
 
-    # -- 12. front-end pass rates ----------------------------------------
+    fps, amain, held = adaptive_phases(dev, card, reset, counts)
+
+    # -- 16. front-end pass rates ----------------------------------------
     frng = np.random.default_rng(5)
     rates = {}
     for label, fe_cfg in (("decim2", FrontendConfig(resample=(1, 2))),
@@ -772,7 +1172,7 @@ def main() -> None:
     print(f"front-end pass, {FE_OUT_PAD} padded outputs, f32 wire, 1 channel (CUDA events, "
           f"5 passes; {card}): {json.dumps(rates)}")
 
-    # -- 13. kernel timings at the main paths' shapes --------------------
+    # -- 17. kernel timings at the main paths' shapes --------------------
     rows, n_ext = blocks.shape
     k1_ms = cuda_ms(lambda: k1.sync_stats(blocks), 20)
     k1_plain = cuda_ms(lambda: k1.sync_stats_plain(blocks), 3)
@@ -805,6 +1205,23 @@ def main() -> None:
     k2_steps = n_slots * (payload_steps + 24)
     k2_bound = {"bytes": k2_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
                 "operations": k2_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+    # the adaptive path's inputs (phase 12, the MCS-2 dense run): the
+    # detector on (4, 262 960) with 128 slots, stage A's SIGNAL trellises
+    # (the viterbi_decode row), one stage-B bucket (SIGNAL + payload)
+    sig_a = amain["viterbi_decode"][0]
+    k1a_ms = cuda_ms(lambda: k1.sync_detect(*amain["sync_detect"]), 20)
+    k2a_ms = cuda_ms(lambda: k2.viterbi_decode(*amain["viterbi_decode"]), 20)
+    k2a_plain = cuda_ms(lambda: k2.viterbi_decode_plain(*amain["viterbi_decode"]), 3)
+    k2b_ms = cuda_ms(lambda: k2.viterbi_decode_many(*amain["viterbi_decode_many"]), 20)
+    k2a_steps = sig_a.shape[0] * sig_a.shape[1]
+    k2a_bound = {"bytes": k2a_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
+                 "operations": k2a_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+    print(f"adaptive path (MCS {MCS} dense run): sync_detect on "
+          f"{tuple(amain['sync_detect'][0].shape)} with {amain['sync_detect'][1]} slots "
+          f"{k1a_ms:.4f} ms; viterbi_decode on stage A's {tuple(sig_a.shape)} {k2a_ms:.4f} ms, "
+          f"plain {k2a_plain:.3f} ms (bound {max(k2a_bound.values()):.5f}); viterbi_decode_many "
+          f"on a stage-B bucket {[tuple(v.shape) for v in amain['viterbi_decode_many'][0]]} "
+          f"{k2b_ms:.4f} ms (CUDA events; {card})")
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.split()[0])
@@ -872,21 +1289,29 @@ def main() -> None:
 
     pkg_src = f"{PKG}/csrc"
     jax_ops = "gnuradio_wifi_imagetransfer_tpu/ops"
+    def held_err(name, err):
+        return float(max(err, held.get(name, (0.0, []))[0]))
+
     out = []
+    # viterbi_decode: the adaptive stage A it serves (launches of the MCS-2
+    # dense run, time and bound at its 512 x 24 trellises)
     for name, src, replaces, launches, err, ms, plain, bound, lib in (
             ("sync_stats", "sync_stats.cu", "pallas_sync.py:104",
              stats_launches["sync_stats"], k1_err, k1_ms, k1_plain, k1_bound, None),
             ("sync_detect", "sync_stats.cu", "pallas_sync.py:104",
-             main_launches["sync_detect"], k1d_err, k1d_ms, k1d_plain, k1d_bound, None),
+             main_launches["sync_detect"], held_err("sync_detect", k1d_err), k1d_ms, k1d_plain,
+             k1d_bound, None),
             ("viterbi_decode", "viterbi_acs.cu", "pallas_viterbi.py:125",
-             vit_launches["viterbi_decode"], float(k2_err), k2_ms, k2_plain, k2_bound, None),
+             amain["launches"]["viterbi_decode"], held_err("viterbi_decode", k2_err), k2a_ms,
+             k2a_plain, k2a_bound, None),
             ("viterbi_decode_many", "viterbi_acs.cu", "pallas_viterbi.py:125",
-             main_launches["viterbi_decode_many"], float(k2m_err), k2m_ms, k2m_plain, k2_bound,
-             None),
+             main_launches["viterbi_decode_many"], held_err("viterbi_decode_many", k2m_err),
+             k2m_ms, k2m_plain, k2_bound, None),
             ("fir_filter", "fir.cu", "pallas_fir.py:84", fir_launches["fir_filter"],
              k3_err, k3_ms, k3_plain, k3_bound, k3_lib),
             ("polyphase_resample", "fir.cu", "pallas_fir.py:179",
-             gen_launches["polyphase_resample"], k4_err, k4_ms, k4_plain, k4_bound, k4_lib)):
+             gen_launches["polyphase_resample"], held_err("polyphase_resample", k4_err), k4_ms,
+             k4_plain, k4_bound, k4_lib)):
         by = max(bound, key=bound.get)
         out.append({"name": name, "route": "cuda", "source": f"{pkg_src}/{src}",
                     "replaces": f"{jax_ops}/{replaces}", "launches": launches,
@@ -920,6 +1345,7 @@ def main() -> None:
                     or m == "gnuradio_wifi_imagetransfer_tpu"
                     or m.startswith("gnuradio_wifi_imagetransfer_tpu."))
     check(not leaked, f"JAX or the JAX package was imported: {leaked[:5]}")
+    print(f"adaptive frames/s ({card}): {json.dumps({k: round(v, 1) for k, v in fps.items()})}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,16 @@
 """802.11a RX chain: aligned sample burst -> decoded PSDU bytes.
 
 PyTorch port of the JAX package's phy/rx.py: 64-point FFT demodulation,
-LS equalization with pilot tracking, SIGNAL decode, soft demap,
+equalization with pilot tracking, SIGNAL decode, soft demap,
 deinterleave, depuncture, Viterbi, descramble and packing to bytes over a
 batch of frames. Symbol timing comes from the caller (genie-aligned
 loopback or phy/sync.py).
+
+``PhyConfig.chan_est`` selects the equalizer and ``lms_mu`` / ``sta_alpha``
+/ ``sta_beta`` tune the LMS and STA trackers; the defaults are
+``PhyConfig()``'s. The port compiles nothing, so the JAX package's
+``jitted_decode_aligned`` (a cache of compiled programs per (MCS, length,
+algo)) has no counterpart: callers pass a ``TxPlan`` to ``decode_aligned``.
 """
 
 from __future__ import annotations
@@ -13,11 +19,13 @@ import dataclasses
 
 import torch
 
-from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator
+from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator, PhyConfig
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import bits as bitops
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import (
     equalizer, mapping, ofdm, params, signal_field, viterbi)
 from gnuradio_wifi_imagetransfer_tpu_torch.phy.tx import TxPlan
+
+_GAINS = PhyConfig()
 
 
 def frame_spectra(samples: torch.Tensor, n_sym: int, start: int | torch.Tensor = 0):
@@ -45,6 +53,36 @@ def frame_spectra(samples: torch.Tensor, n_sym: int, start: int | torch.Tensor =
     return ofdm.fft_symbols(ltf1), ofdm.fft_symbols(ltf2), ofdm.fft_symbols(syms)
 
 
+def decode_signal(windows: torch.Tensor, frame_start: torch.Tensor,
+                  algo: ChannelEstimator = ChannelEstimator.LS, n_sym: int = 0) -> dict:
+    """SIGNAL-only decode of (B, wlen) windows whose preambles start at
+    ``frame_start`` (B,), the first stage of SIGNAL steering: the LTF
+    estimate, the SIGNAL symbol (and n_sym data symbols after it)
+    equalized with ``mcs=None``, so LMS/STA decide with the unit-modulus
+    proxy, then one Viterbi launch of B 24-step trellises. Returns the
+    ``signal_field.parse`` dict."""
+    ltf1, ltf2, spectra = frame_spectra(windows, n_sym, frame_start)
+    h0 = equalizer.ls_estimate(ltf1, ltf2)
+    eq, _ = equalizer.equalize(spectra, h0, symbol_index0=0, algo=algo)
+    return signal_field.decode(eq[..., 0, :])
+
+
+def steerable(sig_ok, rate_idx, length, max_psdu: int):
+    """Mask of SIGNAL decodes that can steer a payload decode (numpy
+    arrays): parity and tail ok, a known rate, 1 <= length <= max_psdu."""
+    return sig_ok & (rate_idx >= 0) & (length >= 1) & (length <= max_psdu)
+
+
+def signal_buckets(rate_idx, length) -> dict[tuple[int, int], list[int]]:
+    """Positions grouped by decoded (rate_idx, length), the buckets and the
+    positions in each in order of first appearance: one payload decode a
+    bucket."""
+    buckets: dict[tuple[int, int], list[int]] = {}
+    for i, key in enumerate(zip(rate_idx, length)):
+        buckets.setdefault((int(key[0]), int(key[1])), []).append(i)
+    return buckets
+
+
 @dataclasses.dataclass(frozen=True)
 class RxResult:
     psdu: torch.Tensor          # (..., L) uint8 decoded PSDU bytes
@@ -54,22 +92,30 @@ class RxResult:
 
 
 def decode_aligned(samples: torch.Tensor, plan: TxPlan, start: int | torch.Tensor = 0,
-                   algo: ChannelEstimator = ChannelEstimator.LS) -> RxResult:
+                   algo: ChannelEstimator = ChannelEstimator.LS,
+                   lms_mu: float = _GAINS.lms_mu, sta_alpha: float = _GAINS.sta_alpha,
+                   sta_beta: float = _GAINS.sta_beta) -> RxResult:
     """Decode frames whose preambles start at ``start`` in ``samples``.
 
     The MCS/length come from ``plan`` (static shapes); the SIGNAL field is
-    decoded and returned for validation but does not steer shapes.
+    decoded and returned for validation but does not steer shapes (the
+    adaptive executor buckets frames by their decoded SIGNAL before it
+    calls this).
     """
     ltf1, ltf2, spectra = frame_spectra(samples, plan.n_sym, start)
-    return decode_spectra(ltf1, ltf2, spectra, plan, algo=algo)
+    return decode_spectra(ltf1, ltf2, spectra, plan, algo=algo, lms_mu=lms_mu,
+                          sta_alpha=sta_alpha, sta_beta=sta_beta)
 
 
 def decode_spectra(ltf1: torch.Tensor, ltf2: torch.Tensor, spectra: torch.Tensor,
-                   plan: TxPlan, algo: ChannelEstimator = ChannelEstimator.LS) -> RxResult:
+                   plan: TxPlan, algo: ChannelEstimator = ChannelEstimator.LS,
+                   lms_mu: float = _GAINS.lms_mu, sta_alpha: float = _GAINS.sta_alpha,
+                   sta_beta: float = _GAINS.sta_beta) -> RxResult:
     """Decode from demodulated spectra: LTF spectra (..., 64) and
     SIGNAL+data spectra (..., 1+n_sym, 64)."""
     h0 = equalizer.ls_estimate(ltf1, ltf2)
-    eq, csi = equalizer.equalize(spectra, h0, symbol_index0=0, algo=algo, mcs=plan.mcs)
+    eq, csi = equalizer.equalize(spectra, h0, symbol_index0=0, algo=algo, mcs=plan.mcs,
+                                 lms_mu=lms_mu, sta_alpha=sta_alpha, sta_beta=sta_beta)
     data_eq = eq[..., 1:, :]
     data_csi = csi[..., 1:, :]
     llr = mapping.demap_llr(

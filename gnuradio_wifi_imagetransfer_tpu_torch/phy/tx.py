@@ -2,7 +2,8 @@
 
 PyTorch port of the JAX package's phy/tx.py: scramble, BCC encode,
 puncture, interleave, map, the SIGNAL header, carrier allocation, IFFT and
-cyclic prefix, over a batch of frames with static shapes per (MCS, length).
+cyclic prefix, over a batch of frames with static shapes per (MCS, length);
+and ``pad_burst``, the scaling and zero padding around a burst.
 """
 
 from __future__ import annotations
@@ -102,3 +103,16 @@ def transmit(psdu, mcs: int, scrambler_seed=1, device="cuda") -> torch.Tensor:
     seeds = torch.as_tensor(scrambler_seed, dtype=torch.long, device=dev).expand(batch)
     out = _tx(psdu.reshape(-1, psdu.shape[-1]), seeds.reshape(-1), plan)
     return out.reshape(batch + out.shape[-1:])
+
+
+def pad_burst(samples: torch.Tensor, pad_front: int = 100, pad_tail: int = 1000,
+              scale: float = 0.5) -> torch.Tensor:
+    """Amplitude scale + zero padding around a burst (..., n), as the
+    reference TX's multiply_const_cc(0.5) and packet_pad2(pad_front=100,
+    pad_tail=1000) do."""
+    batch = samples.shape[:-1]
+
+    def zeros(n):
+        return torch.zeros(batch + (n,), dtype=samples.dtype, device=samples.device)
+
+    return torch.cat([zeros(pad_front), samples * scale, zeros(pad_tail)], dim=-1)

@@ -1,0 +1,293 @@
+"""The port's SIGNAL-steered reception (AdaptiveStreamExecutor and
+AdaptiveReceiver) against the JAX package on the CPU, on the local
+scenarios of tests/test_adaptive_executor.py, tests/test_frontend.py and
+tests/test_adaptive.py.
+
+Executor records must be the same FrameRecords: channel, global_start,
+rate_idx, length, parity_ok and psdu exactly; cfo within 1e-5 rad/sample,
+snr_db within 1e-3 dB and captured eq_symbols within 1e-4 (float32
+arithmetic of two libraries). Receiver frames: start, rate_idx, length
+and psdu exactly, cfo within 1e-5."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gnuradio_wifi_imagetransfer_tpu import config as jconfig
+from gnuradio_wifi_imagetransfer_tpu.channel.model import sample_clock_offset
+from gnuradio_wifi_imagetransfer_tpu.parallel import AdaptiveReceiver as JReceiver
+from gnuradio_wifi_imagetransfer_tpu.parallel import AdaptiveStreamExecutor as JAdaptive
+from gnuradio_wifi_imagetransfer_tpu.phy import tx as jtx
+from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+    ChannelEstimator,
+    ExecutorConfig,
+    FrontendConfig,
+    PhyConfig,
+)
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+    AdaptiveReceiver,
+    AdaptiveStreamExecutor,
+)
+from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, sync, tx
+from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
+
+torch.set_num_threads(2)
+
+
+def _mixed_stream(n_samples, specs, seed=0, snr_db=30):
+    """specs: (pos, mcs, payload) per frame -> a noise-floored stream (the
+    JAX package's TX makes the bursts, as tests/test_adaptive_executor.py
+    does)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(n_samples, np.complex64)
+    for i, (pos, mcs, payload) in enumerate(specs):
+        b = np.asarray(jtx.transmit(jnp.asarray(payload)[None], mcs,
+                                    scrambler_seed=(i % 127) + 1))[0]
+        x[pos: pos + b.size] += 0.5 * b
+    noise = 0.5 * 10 ** (-snr_db / 20) / np.sqrt(2)
+    x = x + noise * (rng.standard_normal(n_samples) + 1j * rng.standard_normal(n_samples))
+    return x.astype(np.complex64)
+
+
+def _specs(seed=7):
+    """Interleaved MCS 0 / 3 / 7 frames with two distinct lengths."""
+    rng = np.random.default_rng(seed)
+    return [(600, 0, rng.integers(0, 256, 50, dtype=np.uint8)),
+            (4000, 3, rng.integers(0, 256, 120, dtype=np.uint8)),
+            (7000, 7, rng.integers(0, 256, 50, dtype=np.uint8)),
+            (10500, 3, rng.integers(0, 256, 50, dtype=np.uint8))]
+
+
+def _run_both(stream, capture_symbols=False, phy=None, **cfg):
+    jphy = jconfig.PhyConfig() if phy is None else jconfig.PhyConfig(
+        **{k: (jconfig.ChannelEstimator(int(v)) if k == "chan_est" else v)
+           for k, v in phy.items()})
+    jfe = cfg.pop("frontend", None)
+    want = JAdaptive(mesh=None, exec_cfg=jconfig.ExecutorConfig(
+        frontend=None if jfe is None else jconfig.FrontendConfig(**jfe), **cfg),
+        phy_cfg=jphy, capture_symbols=capture_symbols).run(stream)
+    got = AdaptiveStreamExecutor(exec_cfg=ExecutorConfig(
+        frontend=None if jfe is None else FrontendConfig(**jfe), **cfg),
+        phy_cfg=PhyConfig(**(phy or {})), capture_symbols=capture_symbols,
+        device="cpu").run(stream)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.channel, g.global_start, g.rate_idx, g.length, g.parity_ok) == (
+            w.channel, w.global_start, w.rate_idx, w.length, w.parity_ok)
+        assert np.array_equal(g.psdu, w.psdu)
+        assert abs(g.cfo - w.cfo) <= 1e-5
+        assert abs(g.snr_db - w.snr_db) <= 1e-3
+        if capture_symbols:
+            assert g.eq_symbols.shape == w.eq_symbols.shape == (
+                tx.tx_plan(g.rate_idx, g.length).n_sym, 48)
+            np.testing.assert_allclose(g.eq_symbols, w.eq_symbols, atol=1e-4, rtol=0)
+        else:
+            assert g.eq_symbols is None and w.eq_symbols is None
+    return got
+
+
+def _check(records, specs, channel=0):
+    ok = {tuple(r.psdu): r for r in records if r.channel == channel and r.parity_ok}
+    for pos, mcs, payload in specs:
+        r = ok[tuple(payload)]
+        assert (r.rate_idx, r.length) == (mcs, len(payload))
+        assert abs(r.global_start - pos) <= 160
+
+
+def test_mixed_mcs_matches_jax():
+    specs = _specs()
+    recs = _run_both(_mixed_stream(4 * 4096, specs), block_size=4096, time_shards=4,
+                     max_frames_per_block=4)
+    _check(recs, specs)
+
+
+@pytest.mark.parametrize("algo", [ChannelEstimator.LMS, ChannelEstimator.STA,
+                                  ChannelEstimator.COMB])
+def test_trackers_through_both_stages_match_jax(algo):
+    """SIGNAL equalized with the tracker's unit-modulus proxy in stage A,
+    the payload with the frame's constellation in stage B, at 18 dB."""
+    specs = [(pos, mcs, p) for pos, mcs, p in _specs(11) if mcs != 7]
+    x = _mixed_stream(4 * 4096, specs, seed=3, snr_db=18)
+    recs = _run_both(x, phy=dict(chan_est=algo, lms_mu=0.25, sta_beta=0.25),
+                     block_size=4096, time_shards=4, max_frames_per_block=4)
+    _check(recs, specs)
+
+
+def test_superblock_boundary_matches_jax():
+    span = 2 * 2048
+    rng = np.random.default_rng(9)
+    specs = [(span - 700, 3, rng.integers(0, 256, 60, dtype=np.uint8)),    # straddles
+             (2 * span + 300, 7, rng.integers(0, 256, 60, dtype=np.uint8))]
+    recs = _run_both(_mixed_stream(3 * span, specs, seed=4), block_size=2048,
+                     time_shards=2, max_frames_per_block=4)
+    assert sum(r.parity_ok for r in recs) == len(specs)
+    _check(recs, specs)
+
+
+def test_frame_at_stream_end_unpadded_matches_jax():
+    """A burst ending at the stream's last sample: stage B's gather reads
+    the resident stream's zero pad past the end."""
+    rng = np.random.default_rng(21)
+    payload = rng.integers(0, 256, 60, dtype=np.uint8)
+    burst = np.asarray(jtx.transmit(jnp.asarray(payload)[None], 3))[0]
+    n = 4 * 2048
+    pos = n - burst.size
+    x = np.zeros(n, np.complex64)
+    x[pos:] += 0.5 * burst
+    x += (0.005 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    recs = _run_both(x, block_size=2048, time_shards=4, max_frames_per_block=4)
+    assert sum(r.parity_ok for r in recs) == 1
+    _check(recs, [(pos, 3, payload)])
+
+
+def test_two_channels_match_jax():
+    rng = np.random.default_rng(11)
+    specs_a = _specs(seed=7)
+    specs_b = [(1500, 7, rng.integers(0, 256, 200, dtype=np.uint8)),
+               (9000, 0, rng.integers(0, 256, 50, dtype=np.uint8))]
+    stream = np.stack([_mixed_stream(4 * 4096, specs_a, seed=1),
+                       _mixed_stream(4 * 4096, specs_b, seed=2)])
+    recs = _run_both(stream, block_size=4096, time_shards=4, max_frames_per_block=4,
+                     channels=2)
+    _check(recs, specs_a, channel=0)
+    _check(recs, specs_b, channel=1)
+
+
+def test_sc8_wire_matches_jax():
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    specs = [(700, 2, rng.integers(0, 256, 50, dtype=np.uint8)),
+             (34000, 7, rng.integers(0, 256, 120, dtype=np.uint8))]
+    x = np.zeros(n, np.complex64)
+    for i, (pos, mcs, payload) in enumerate(specs):
+        b = np.asarray(jtx.transmit(jnp.asarray(payload)[None], mcs, scrambler_seed=i + 1))[0]
+        x[pos: pos + b.size] += 0.5 * b
+    x += 0.004 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    recs = _run_both(x[None], block_size=1 << 14, time_shards=4, max_frames_per_block=4,
+                     wire_format="sc8")
+    _check(recs, specs)
+
+
+def test_capture_symbols_matches_jax():
+    rng = np.random.default_rng(3)
+    specs = [(600, 2, rng.integers(0, 256, 50, dtype=np.uint8)),
+             (9000, 5, rng.integers(0, 256, 70, dtype=np.uint8))]
+    x = _mixed_stream(1 << 14, specs, snr_db=28)
+    recs = _run_both(x[None], capture_symbols=True, block_size=1 << 13, time_shards=2,
+                     max_frames_per_block=4)
+    _check(recs, specs)
+
+
+@pytest.mark.parametrize("fe", [dict(resample=(1, 2)), dict(ppm=-40.0)])
+def test_frontend_matches_jax(fe):
+    """tests/test_frontend.py's local adaptive cases: a 2x-oversampled
+    capture and a -40 ppm clock skew, corrected on the device first."""
+    rng = np.random.default_rng(13 if "resample" in fe else 17)
+    n, n_frames = 120_000, 6
+    frames = rng.integers(0, 256, (n_frames, 50), dtype=np.uint8)
+    bursts = np.asarray(jtx.transmit(frames, 2))
+    x = (0.012 * (rng.normal(size=n) + 1j * rng.normal(size=n))).astype(np.complex64)
+    starts = [4000 + i * ((n - 8000) // n_frames) for i in range(n_frames)]
+    for i, s in enumerate(starts):
+        x[s: s + bursts.shape[1]] += bursts[i]
+    if "resample" in fe:
+        spec = np.fft.fft(x)
+        up = np.zeros(2 * n, np.complex64)
+        up[: n // 2], up[-(n // 2):] = spec[: n // 2], spec[-(n // 2):]
+        x = (np.fft.ifft(up) * 2).astype(np.complex64)
+    else:
+        x = np.asarray(sample_clock_offset(jnp.asarray(x), fe["ppm"]))
+    recs = _run_both(x[None], frontend=fe, block_size=1 << 14, time_shards=2)
+    _check(recs, [(s, 2, f) for s, f in zip(starts, frames)])
+
+
+def test_tracer_stages_and_resident_pad():
+    """A run reports its stages (one fetch of all four buckets at the
+    end), and the resident stream carries the longest frame's window of
+    zeros past its end, so a stage-B gather never leaves it."""
+    specs = _specs()
+    x = _mixed_stream(4 * 4096, specs)[None]
+    tracer = tracing.Tracer()
+    ex = AdaptiveStreamExecutor(exec_cfg=ExecutorConfig(block_size=4096, time_shards=4,
+                                                        max_frames_per_block=4),
+                                tracer=tracer, device="cpu")
+    recs = ex.run(x)
+    stages = tracer.report()
+    assert {"layout", "transfer", "device_step", "collect", "stage_b",
+            "stage_b_fetch"} <= set(stages)
+    assert stages["stage_b"].frames == len(recs) == 4
+    assert stages["stage_b_fetch"].calls == 1 and stages["stage_b_fetch"].frames == 4
+    assert ex._resident_right_pad() == sync.window_len(tx.tx_plan(0, 800).n_sym) == 22160
+    assert ex.padded_out_len(4 * 4096) == 256 + 4 * 4096 + 22160
+    assert ex.halo_right == 560
+
+
+def _receiver_stream(jobs, n, seed=0, noise=0.004, gap=9000, pos0=500):
+    rng = np.random.default_rng(seed)
+    x = np.zeros(n, np.complex64)
+    pos = pos0
+    for mcs, psdu in jobs:
+        burst = np.asarray(jtx.transmit(jnp.asarray(psdu[None]), mcs))[0]
+        x[pos: pos + burst.size] += 0.5 * burst
+        pos += gap
+    x += noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    return x
+
+
+def _short_stream():
+    rng = np.random.default_rng(4)
+    psdu = rng.integers(0, 256, 30, dtype=np.uint8)
+    burst = np.asarray(jtx.transmit(jnp.asarray(psdu[None]), 1))[0]
+    x = np.zeros(burst.size + 400, np.complex64)
+    x[200: 200 + burst.size] = 0.4 * burst
+    x += 0.003 * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size)).astype(
+        np.complex64)
+    return x
+
+
+def _receiver_case(name):
+    """(stream, max_psdu, max_frames, frames expected) of a scenario of
+    tests/test_adaptive.py."""
+    if name == "mixed":
+        rng = np.random.default_rng(1)
+        jobs = [(0, rng.integers(0, 256, 40, dtype=np.uint8)),
+                (2, rng.integers(0, 256, 100, dtype=np.uint8)),
+                (5, rng.integers(0, 256, 64, dtype=np.uint8))]
+        return _receiver_stream(jobs, 1 << 15), 256, 4, 3
+    if name == "one_bucket":
+        rng = np.random.default_rng(2)
+        jobs = [(3, rng.integers(0, 256, 50, dtype=np.uint8)) for _ in range(3)]
+        return _receiver_stream(jobs, 1 << 15), 128, 4, 3
+    if name == "noise_only":
+        rng = np.random.default_rng(3)
+        n = 1 << 14
+        return (0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(
+            np.complex64), 128, 4, 0
+    return _short_stream(), 256, 2, 1
+
+
+@pytest.mark.parametrize("name", ["mixed", "one_bucket", "noise_only", "short_padded"])
+def test_receiver_matches_jax(name):
+    x, max_psdu, max_frames, n_expected = _receiver_case(name)
+    want = JReceiver(max_psdu=max_psdu, max_frames=max_frames).receive(x)
+    got = AdaptiveReceiver(max_psdu=max_psdu, max_frames=max_frames, device="cpu").receive(x)
+    assert len(got) == len(want) == n_expected
+    for g, w in zip(got, want):
+        assert (g.start, g.rate_idx, g.length, g.sig_ok) == (w.start, w.rate_idx, w.length,
+                                                              w.sig_ok)
+        assert np.array_equal(g.psdu, w.psdu)
+        assert abs(g.cfo - w.cfo) <= 1e-5
+
+
+def test_signal_buckets_and_steerable_mask():
+    """The host dispatch rules both SIGNAL-steered paths share: a decode
+    steers only with parity, a known rate and 1 <= length <= max_psdu;
+    buckets and their members keep the order of first appearance."""
+    sig_ok = np.array([True, True, False, True, True, True, True])
+    rate_idx = np.array([3, -1, 3, 0, 3, 7, 0])
+    length = np.array([50, 50, 50, 0, 50, 801, 120])
+    ok = rx.steerable(sig_ok, rate_idx, length, 800)
+    assert ok.tolist() == [True, False, False, False, True, False, True]
+    assert rx.signal_buckets([7, 3, 7, 0, 3], [50, 50, 50, 50, 60]) == {
+        (7, 50): [0, 2], (3, 50): [1], (0, 50): [3], (3, 60): [4]}

@@ -369,3 +369,107 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         k34.polyphase_resample(torch.zeros(4, 10, device=dev).t(), 3, 4,
                                ops.design_lowpass(3, 4))
+
+
+# -- the SIGNAL-steered path, the trackers and the CRC on the card -----------
+
+
+def _adaptive_stream(seed, n=4 * 8192, snr_db=25):
+    """One channel of MCS 0 / 3 / 7 frames (the port's TX) in seeded noise,
+    one of them straddling the first block seam."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import tx
+
+    rng = np.random.default_rng(seed)
+    x = np.zeros(n, np.complex64)
+    sent = []
+    for i, (pos, mcs, ln) in enumerate([(600, 0, 50), (8000, 3, 120), (15000, 7, 50),
+                                        (24000, 3, 50)]):
+        payload = rng.integers(0, 256, (1, ln), dtype=np.uint8)
+        b = tx.transmit(payload, mcs, scrambler_seed=i + 1, device="cpu")[0].numpy()
+        x[pos: pos + b.size] += 0.5 * b
+        sent.append((mcs, tuple(payload[0])))
+    sigma = 0.5 * 10 ** (-snr_db / 20) / np.sqrt(2)
+    x += (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    return x[None], sent
+
+
+def _same_records(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.channel, g.global_start, g.rate_idx, g.length, g.parity_ok) == (
+            w.channel, w.global_start, w.rate_idx, w.length, w.parity_ok)
+        assert np.array_equal(g.psdu, w.psdu)
+        assert abs(g.cfo - w.cfo) <= 1e-5
+        assert abs(g.snr_db - w.snr_db) <= 1e-3
+
+
+@pytest.mark.parametrize("wire", ["sc16", "sc8"])
+@pytest.mark.parametrize("algo", ["LS", "LMS"])
+def test_adaptive_executor_on_cuda_equals_cpu(dev, algo, wire):
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+        ChannelEstimator, ExecutorConfig, PhyConfig)
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import AdaptiveStreamExecutor
+
+    x, sent = _adaptive_stream(3)
+    kw = dict(exec_cfg=ExecutorConfig(block_size=8192, time_shards=2, max_frames_per_block=4,
+                                      wire_format=wire),
+              phy_cfg=PhyConfig(chan_est=ChannelEstimator[algo]))
+    k1.sync_detect.launches = k2.viterbi_decode.launches = k2.viterbi_decode_many.launches = 0
+    got = AdaptiveStreamExecutor(device=dev, **kw).run(x)
+    torch.cuda.synchronize()
+    # 2 steps: a detector and a SIGNAL Viterbi launch each; one payload
+    # launch a (rate, length) bucket
+    assert (k1.sync_detect.launches, k2.viterbi_decode.launches) == (2, 2)
+    assert k2.viterbi_decode_many.launches == len({(r.rate_idx, r.length) for r in got})
+    _same_records(got, AdaptiveStreamExecutor(device="cpu", **kw).run(x))
+    assert set(sent) <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok}
+
+
+def test_adaptive_receiver_on_cuda_equals_cpu(dev):
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import AdaptiveReceiver
+
+    x, sent = _adaptive_stream(4, n=1 << 15)
+    got = AdaptiveReceiver(max_psdu=256, max_frames=8, device=dev).receive(x[0])
+    want = AdaptiveReceiver(max_psdu=256, max_frames=8, device="cpu").receive(x[0])
+    assert len(got) == len(want) == len(sent)
+    for g, w in zip(got, want):
+        assert (g.start, g.rate_idx, g.length) == (w.start, w.rate_idx, w.length)
+        assert np.array_equal(g.psdu, w.psdu) and abs(g.cfo - w.cfo) <= 1e-5
+    assert set(sent) == {(f.rate_idx, tuple(f.psdu)) for f in got}
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (300, 46), (4, 3, 828)])
+def test_crc32_on_cuda_equals_zlib(dev, shape):
+    import zlib
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac
+
+    data = np.random.default_rng(shape[-1]).integers(0, 256, shape, dtype=np.uint8)
+    got = mac.crc32(torch.from_numpy(data).to(dev))
+    assert got.device.type == "cuda"
+    want = [zlib.crc32(r.tobytes()) for r in data.reshape(-1, shape[-1])]
+    assert got.cpu().reshape(-1).tolist() == want
+    mpdus = torch.from_numpy(mac.frame_batch(data.reshape(-1, shape[-1]))).to(dev)
+    assert bool(mac.check_fcs_batch(mpdus).all())
+    mpdus[:, 7] ^= 4
+    assert not bool(mac.check_fcs_batch(mpdus).any())
+
+
+@pytest.mark.parametrize("mcs", [None, 0, 2, 7])
+@pytest.mark.parametrize("algo", ["LS", "LMS", "COMB", "STA"])
+def test_equalize_on_cuda_within_1e4_of_cpu(dev, algo, mcs):
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, mapping
+
+    rng = np.random.default_rng(8)
+    y = (rng.standard_normal((6, 30, 64)) + 1j * rng.standard_normal((6, 30, 64))) * 0.05
+    y += mapping.map_bits(torch.from_numpy(rng.integers(0, 2, (6, 30, 128), dtype=np.uint8)),
+                          2).numpy().reshape(6, 30, 64) * np.exp(0.3j)
+    h0 = np.exp(0.3j) * (1 + 0.1 * rng.standard_normal((6, 52)))
+    y, h0 = torch.from_numpy(y.astype(np.complex64)), torch.from_numpy(h0.astype(np.complex64))
+    for idx0 in (0, 1):
+        want = equalizer.equalize(y, h0, idx0, ChannelEstimator[algo], mcs)
+        got = equalizer.equalize(y.to(dev), h0.to(dev), idx0, ChannelEstimator[algo], mcs)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)

@@ -17,7 +17,11 @@ from gnuradio_wifi_imagetransfer_tpu.phy import params as jparams
 from gnuradio_wifi_imagetransfer_tpu.phy import tx as jtx
 from gnuradio_wifi_imagetransfer_tpu.utils import xfer as jxfer
 from gnuradio_wifi_imagetransfer_tpu_torch import config, state
-from gnuradio_wifi_imagetransfer_tpu_torch.parallel import StreamExecutor
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+    AdaptiveReceiver,
+    AdaptiveStreamExecutor,
+    StreamExecutor,
+)
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, tx
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import device, xfer
 
@@ -40,6 +44,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                or n.startswith("gnuradio_wifi_imagetransfer_tpu.")
                or n == "jax" or n.startswith("jax."))]
         assert not bad, bad
+        new = {port.__name__ + "." + m for m in (
+            "channel", "channel.model", "phy.mac", "parallel.adaptive", "parallel.executor")}
+        assert new <= set(sys.modules), new - set(sys.modules)
         print("OK", len([n for n in sys.modules if n.startswith(port.__name__)]))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -94,15 +101,19 @@ def test_load_reference_state_rejects_a_changed_table():
 
 
 def test_unported_options_raise():
+    """The sharded (mesh) mode of both executors is not ported and raises;
+    every channel estimator is ported and runs."""
     fe = config.ExecutorConfig(frontend=config.FrontendConfig(resample=(1, 2)))
     with pytest.raises(NotImplementedError):
         StreamExecutor(tx.tx_plan(2, 50), mesh=object(), exec_cfg=fe, device="cpu")
     with pytest.raises(NotImplementedError):
         StreamExecutor(tx.tx_plan(2, 50), mesh=object(), device="cpu")
-    h = torch.ones(1, 52, dtype=torch.complex64)
     with pytest.raises(NotImplementedError):
-        equalizer.equalize(torch.ones(1, 2, 64, dtype=torch.complex64), h,
-                           algo=config.ChannelEstimator.LMS)
+        AdaptiveStreamExecutor(mesh=object(), device="cpu")
+    h = torch.ones(1, 52, dtype=torch.complex64)
+    for algo in config.ChannelEstimator:
+        eq, csi = equalizer.equalize(torch.ones(1, 2, 64, dtype=torch.complex64), h, algo=algo)
+        assert eq.shape == csi.shape == (1, 2, 48)
 
 
 def test_cuda_request_without_cuda_raises():
@@ -112,6 +123,10 @@ def test_cuda_request_without_cuda_raises():
         device.resolve("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         tx.transmit(np.zeros((1, 10), np.uint8), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AdaptiveStreamExecutor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AdaptiveReceiver()
 
 
 @pytest.mark.parametrize("mcs", range(8))
