@@ -96,16 +96,37 @@ holds each hand-written kernel against its plain PyTorch version:
      adaptive path's shapes, K3 and K4 with their share of bound and
      their conv1d yardsticks, K3 with its taps given as numpy and as a
      CUDA tensor (with ``--parent``, also the other checkout's K3 and K4
-     in turns with this tree's, each in a process of its own); then
-     prints one JSON line of kernel timings, bounds and launch counts.
+     in turns with this tree's, each in a process of its own);
+ 18. the radios on the Mode-2 traffic: one 300 x 300 x 3 image
+     (``AppConfig.image_size``) cut by ``utils.image.detach_image`` into
+     2 700 pieces, one 266-268-byte datagram each. ``LoopbackRadio`` at
+     its defaults (MCS 3, 22 dB, batch 8) with the pieces sent at 1 ms
+     spacing; then the live retune of tests/test_runtime.py (MCS 2, 25 dB,
+     probes on; after half the pieces MCS 5, 30 dB, epsilon 2e-6, STA);
+ 19. ``TxRadio`` (MCS 2, batch 4, scale 0.5) into ``RxRadio`` (chunk 2**17,
+     the default ExecutorConfig, probes on), the pieces at 5 ms spacing
+     (about 14.8 M sc16 samples). Each radio run must bring every piece
+     back to the app's socket and draw the image bit for bit, print no
+     "dropped" line (stdout is captured while a radio runs: the radio
+     loops catch exceptions, which would hide a failed launch), use the
+     native UDP source and sink, and fill the probes where they are on;
+     the first RADIO_HELD calls of each kernel in a run are held against
+     their plain versions as in phase 12; sync_detect and
+     viterbi_decode_many (and in phase 19 viterbi_decode) must launch,
+     dense K1, K3 and K4 not. Prints pieces/s, the batch or chunk pass
+     times, RxRadio's Tracer, a profiled batch and chunk, and K1 and K2
+     timed at the radios' first calls beside their bounds; then one JSON
+     line of kernel timings, bounds and launch counts (each kernel's
+     ``radio_launches`` are those of phases 18 and 19).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
 JSON line; two checkouts are compared by running it in turns (A, B, B,
 A). It builds the kernels into that checkout's own build directory.
 
-Launch counts are set to 0 just before each main-path run (7 to 13) and
-read just after; launches made to compare or time a kernel do not count.
+Launch counts are set to 0 just before each main-path run (7 to 13, and
+each radio run of 18-19) and read just after; launches made to compare or
+time a kernel do not count.
 A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
@@ -150,6 +171,14 @@ ADAPTIVE_SHARDS = 4
 ADAPTIVE_SLOTS = 128
 ADAPTIVE_ROUNDS = 3                  # timed runs of each stream, in turns
 MAC_PAYLOAD = PSDU_LEN - 28          # + MAC header and FCS = a 50-byte PSDU
+
+# the radios' traffic (phases 18-19): the Mode-2 deployment's image
+# (AppConfig.image_size, 3 channels) in 10 x 10 pieces, 2 700 datagrams,
+# sent at 1 ms (loopback) and 5 ms (TxRadio into RxRadio) spacing
+RADIO_IMAGE = (300, 300, 3)
+RADIO_SPACING = {"radio-loopback": 0.001, "radio-split": 0.005}
+RADIO_HELD = 8                       # kernel calls a radio run holds against the plain versions
+RADIO_PROFILE_PASS = 4               # the batch or chunk profiled again after a run
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -264,16 +293,42 @@ def max_err(got, want) -> float:
     return (got - want).abs().max().item()
 
 
-class _Recorded:
-    """A kernel wrapper that keeps the arguments of each call. Its
-    ``launches`` is the wrapper's own, which the wrapper increments
-    through its module attribute, that is through this object."""
+def detect_bound(x, k: int) -> dict:
+    """The fused detector's bound (ms) on x (..., n) with k slots a row:
+    each complex64 sample read once, each slot's start, valid, cfo and
+    ratio written once; the statistics and the threshold compare on every
+    sample."""
+    n = x.shape[-1]
+    rows = x.numel() // n
+    return {"bytes": (rows * n * 8 + rows * k * (4 + 1 + 8 + 4)) / HBM_BYTES_PER_S * 1e3,
+            "operations": rows * n * K1_DETECT_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
 
-    def __init__(self, fn, log: list):
-        self.fn, self.log = fn, log
+
+def bound_str(bound: dict) -> str:
+    """'<ms> ms by <bytes|operations>', the larger of the two."""
+    by = max(bound, key=bound.get)
+    return f"{bound[by]:.5f} ms by {by}"
+
+
+def viterbi_bound(steps: int) -> dict:
+    """K2's bound (ms) for ``steps`` trellis steps in all: an LLR pair
+    read and a decided bit written a step, the ACS of a step."""
+    return {"bytes": steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
+            "operations": steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+
+
+class _Recorded:
+    """A kernel wrapper that keeps the arguments of each call (of the first
+    ``keep`` calls, when given). Its ``launches`` is the wrapper's own,
+    which the wrapper increments through its module attribute, that is
+    through this object."""
+
+    def __init__(self, fn, log: list, keep: int | None = None):
+        self.fn, self.log, self.keep = fn, log, keep
 
     def __call__(self, *args, **kw):
-        self.log.append((args, kw))
+        if self.keep is None or len(self.log) < self.keep:
+            self.log.append((args, kw))
         return self.fn(*args, **kw)
 
     @property
@@ -286,15 +341,15 @@ class _Recorded:
 
 
 @contextlib.contextmanager
-def recording(*targets):
+def recording(*targets, keep: int | None = None):
     """Within the block, each (module, name) of targets keeps the
-    arguments of every call made through that module attribute, and runs
-    as before (its launch count included). Yields {name: [(args, kwargs),
-    ...]}."""
+    arguments of every call made through that module attribute (of its
+    first ``keep`` calls, when given), from any thread, and runs as before
+    (its launch count included). Yields {name: [(args, kwargs), ...]}."""
     calls = {name: [] for _, name in targets}
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name, fn in saved:
-        setattr(mod, name, _Recorded(fn, calls[name]))
+        setattr(mod, name, _Recorded(fn, calls[name], keep))
     try:
         yield calls
     finally:
@@ -727,6 +782,336 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
           f"(1e-4); echo frame byte errors {json.dumps(errs)}; adaptive LMS records equal "
           f"the CPU path's")
     return fps, main, held
+
+
+class _AppSide:
+    """The receiving app of the Mode-2 traffic: a thread that reads the
+    radio's datagrams (bare pickled pieces) from a UDP socket and draws
+    them into a canvas."""
+
+    def __init__(self, img: np.ndarray):
+        import socket
+        import threading
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self.img = img
+        self.canvas = np.zeros_like(img)
+        self.seen: set = set()
+        self.datagrams = 0
+        self.t_last = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import pickle
+        import socket
+
+        from gnuradio_wifi_imagetransfer_tpu_torch.utils import image
+
+        while not self._stop.is_set():
+            try:
+                data, _ = self.sock.recvfrom(65536)
+            except socket.timeout:
+                continue
+            piece = pickle.loads(data)
+            image.redraw_image(piece, self.canvas)
+            self.seen.add(piece[0])
+            self.datagrams += 1
+            self.t_last = time.perf_counter()
+
+    def wait(self, n: int, timeout: float) -> None:
+        """Until n distinct pieces arrived, or timeout seconds of none."""
+        t_check, have = time.perf_counter(), -1
+        while len(self.seen) < n and time.perf_counter() - t_check < timeout:
+            if len(self.seen) != have:
+                t_check, have = time.perf_counter(), len(self.seen)
+            time.sleep(0.05)
+
+    def reset(self) -> None:
+        self.canvas[:] = 0
+        self.seen.clear()
+        self.datagrams = 0
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self.sock.close()
+
+
+def send_paced(pieces, port: int, spacing: float) -> float:
+    """Each piece as one datagram to port, the i-th at i * spacing seconds;
+    returns the seconds the sends took."""
+    import socket
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils import image
+
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    t0 = time.perf_counter()
+    for i, p in enumerate(pieces):
+        delay = t0 + i * spacing - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        sock.sendto(image.encode_piece(p), ("127.0.0.1", port))
+    sock.close()
+    return time.perf_counter() - t0
+
+
+class _Passes:
+    """Times each call of a radio's ``_process`` (a batch or a chunk) and
+    keeps a copy of the arguments of call number ``capture`` (from 0; of
+    the last call when there are fewer)."""
+
+    def __init__(self, radio, capture: int):
+        self.fn, self.capture = radio._process, capture
+        self.seconds: list[float] = []
+        self.args = None
+        radio._process = self
+
+    def __call__(self, *args, **kwargs):
+        if len(self.seconds) <= self.capture:
+            self.args = tuple(a.copy() if hasattr(a, "copy") else a for a in args)
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds.append(time.perf_counter() - t0)
+
+    def summary(self) -> str:
+        v = np.array(self.seconds) * 1e3
+        return (f"{v.size} passes, median {np.median(v):.2f} ms, spread {v.min():.2f}-"
+                f"{v.max():.2f} ms (p10 {np.percentile(v, 10):.2f}, p90 "
+                f"{np.percentile(v, 90):.2f})")
+
+
+class _InFlight:
+    """The peak of the samples a TxRadio has sent and its RxRadio has not
+    yet read (what waits in the sample socket's queue), polled from the
+    radios' counters every 10 ms in a thread."""
+
+    def __init__(self, txr, rxr):
+        import threading
+
+        self.txr, self.rxr, self.peak = txr, rxr, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak,
+                            self.txr.stats["samples_tx"] - self.rxr.stats["samples_in"])
+            time.sleep(0.01)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=1.0)
+
+
+def input_numel(call) -> int:
+    """Elements of a recorded kernel call's first argument (a tensor, or
+    a list of segment tensors)."""
+    first = call[0][0]
+    return sum(t.numel() for t in first) if isinstance(first, list) else first.numel()
+
+
+class _ListSink:
+    """A radio sink that keeps the payloads (profiled re-runs emit nothing)."""
+
+    def __init__(self):
+        self.payloads = []
+
+    def send_mac_payload(self, payload):
+        self.payloads.append(payload)
+
+    def close(self):
+        pass
+
+
+def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
+                 spacing=RADIO_SPACING) -> dict:
+    """Phases 18-19: the radios at their constructor defaults on the
+    Mode-2 traffic (one image of ``shape`` in 10 x 10 pieces, one
+    datagram each). 18: LoopbackRadio, then the live retune of
+    tests/test_runtime.py; 19: TxRadio into RxRadio. Each run must deliver
+    every piece, draw the image bit for bit and print no "dropped" line
+    (stdout is captured while a radio runs); the first RADIO_HELD calls of
+    each kernel in a run are held against their plain versions (into
+    ``held``). Returns each phase's launches and, for each phase, the
+    largest call of each kernel in a batch or chunk run again after it
+    ({phase: {kernel: (args, kwargs)}})."""
+    import io
+    import socket
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import bridge, native
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils import image
+
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    rng = np.random.default_rng(18)
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    pieces = image.detach_image(img, rng=rng)
+    n = len(pieces)
+    sizes = sorted({len(image.encode_piece(p)) for p in pieces})
+    app = _AppSide(img)
+    try:
+        rmem = open("/proc/sys/net/core/rmem_max").read().strip()
+    except OSError:
+        rmem = "unknown"
+    print(f"radio traffic: {n} pieces of an image {shape} (AppConfig), datagrams of {sizes} "
+          f"bytes; net.core.rmem_max {rmem}")
+
+    def run(label, radios, in_port, part, spacing_s, then=None):
+        """One radio run: radios started, part sent paced (then ``then()``,
+        which sends the rest), every piece of the image back within 60 s
+        of the last one, the canvas bit for bit, no "dropped" line.
+        Returns (wall s, send s, launches, held calls)."""
+        app.reset()
+        out = io.StringIO()
+        reset()
+        with recording(*targets, keep=RADIO_HELD) as calls, contextlib.redirect_stdout(out):
+            for r in radios:
+                r.start()
+            t0 = time.perf_counter()
+            t_send = send_paced(part, in_port, spacing_s)
+            if then is not None:
+                t_send += then()
+            app.wait(n, 60.0)
+            wall = (app.t_last or time.perf_counter()) - t0
+            for r in radios:
+                r.stop()
+        launches = counts()
+        log = out.getvalue()
+        if log:
+            print(log, end="")
+        stats = {type(r).__name__: r.stats for r in radios}
+        check("dropped" not in log, f"{label}: a radio dropped a batch or chunk:\n{log[-2000:]}")
+        check(len(app.seen) == n, f"{label}: {len(app.seen)}/{n} pieces delivered; {stats}")
+        check(np.array_equal(app.canvas, img), f"{label}: the canvas differs from the image")
+        return wall, t_send, launches, hold_recorded(calls, label)
+
+    def again(label, what, radio, fn):
+        """One pass of a run again, after it (the sink a list): profiled,
+        and its kernel calls kept, the largest of each kernel in
+        ``inputs[label]`` (the shapes the steady radio gives them)."""
+        radio.sink = _ListSink()
+        with recording(*targets) as calls:
+            prof = device_profile(fn)
+        print_profile(f"{label}, {what} ({card})", prof)
+        inputs[label] = {k: max(v, key=input_numel) for k, v in calls.items() if v}
+
+    def note(out):
+        for name, (e, shapes) in out.items():
+            e0, s0 = held.get(name, (0.0, []))
+            held[name] = (max(e0, e), s0 + shapes)
+
+    def check_launches(label, launches, need):
+        check(all(launches[k] > 0 for k in need)
+              and all(launches[k] == 0 for k in ("sync_stats", "fir_filter",
+                                                 "polyphase_resample")),
+              f"{label}: launches {launches} (need {need} > 0, and no dense K1, K3 or K4)")
+
+    phases, inputs = {}, {}
+    # -- 18. LoopbackRadio at its defaults, then the live retune -----------
+    radio = bridge.LoopbackRadio(in_port=0, out_port=app.port, device=dev)
+    check(isinstance(radio.source, native.NativeUdpSource)
+          and isinstance(radio.sink, bridge.NativeExtractSink),
+          f"radio-loopback: not the native source and sink ({type(radio.source).__name__}, "
+          f"{type(radio.sink).__name__})")
+    passes = _Passes(radio, capture=RADIO_PROFILE_PASS)
+    wall, t_send, launches, out = run("radio-loopback", [radio], radio.in_port, pieces,
+                                      spacing["radio-loopback"])
+    note(out)
+    check_launches("radio-loopback", launches, ("sync_detect", "viterbi_decode_many"))
+    batches = len(passes.seconds)
+    print(f"radio-loopback: LoopbackRadio(mcs {radio.mcs}, snr {radio.snr_db} dB, batch "
+          f"{radio.batch}), source {type(radio.source).__name__}, sink "
+          f"{type(radio.sink).__name__}: {n}/{n} pieces, canvas bit for bit, no dropped line; "
+          f"sent at {1e3 * spacing['radio-loopback']:g} ms spacing in {t_send:.2f} s; wall "
+          f"{wall:.2f} s, {n / wall:.0f} pieces/s; stats {json.dumps(radio.stats)}; batch "
+          f"times {passes.summary()}; launches {json.dumps(launches)} "
+          f"({launches['sync_detect'] / batches:.2f} sync_detect and "
+          f"{launches['viterbi_decode_many'] / batches:.2f} viterbi_decode_many a batch over "
+          f"{batches} batches); held "
+          f"{json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} ({card})")
+    again("radio-loopback", f"one batch of {len(passes.args[0])} datagrams", radio,
+          lambda: radio._process(*passes.args))
+    phase_launches = dict(launches)
+
+    retune = bridge.LoopbackRadio(in_port=0, out_port=app.port, mcs=2, snr_db=25.0,
+                                  probes=True, device=dev)
+    half = n // 2
+
+    def second_part():
+        """Retune live (MCS 5, SNR 30 dB, epsilon 2e-6, STA) once the first
+        part is back, then send the rest."""
+        app.wait(half, 60.0)
+        check(len(app.seen) == half, f"radio-loopback retune: {len(app.seen)}/{half} pieces "
+                                     f"before the retune")
+        retune.set_encoding(5)
+        retune.set_snr(30.0)
+        retune.set_epsilon(2e-6)
+        retune.set_chan_est(3)
+        return send_paced(pieces[half:], retune.in_port, spacing["radio-loopback"])
+
+    wall, t_send, launches, out = run("radio-loopback retune", [retune], retune.in_port,
+                                      pieces[:half], spacing["radio-loopback"],
+                                      then=second_part)
+    note(out)
+    check_launches("radio-loopback retune", launches, ("sync_detect", "viterbi_decode_many"))
+    check(retune.constellation.points().shape[0] > 0 and retune.spectrum.psd_db().max() > -200
+          and np.isfinite(retune.snr_probe.snr_db()), "radio-loopback retune: probes not filled")
+    print(f"radio-loopback retune: MCS 2 -> 5, SNR 25 -> 30 dB, epsilon 0 -> 2e-6, LS -> STA "
+          f"after {half} pieces: {n}/{n} pieces, canvas bit for bit; wall {wall:.2f} s; "
+          f"probes: {retune.constellation.points().shape[0]} points, PSD max "
+          f"{retune.spectrum.psd_db().max():.1f} dB, SNR {retune.snr_probe.snr_db():.1f} dB; "
+          f"launches {json.dumps(launches)} ({card})")
+    phases["radio-loopback"] = {k: v + launches[k] for k, v in phase_launches.items()}
+
+    # -- 19. TxRadio into RxRadio ------------------------------------------
+    rxr = bridge.RxRadio(samp_port=0, out_port=app.port, device=dev)
+    txr = bridge.TxRadio(in_port=0, samp_port=rxr.samp_port, device=dev)
+    check(isinstance(txr.source, native.NativeUdpSource)
+          and isinstance(rxr.sink, bridge.NativeExtractSink),
+          f"radio-split: not the native source and sink ({type(txr.source).__name__}, "
+          f"{type(rxr.sink).__name__})")
+    rcvbuf = rxr.samp_sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    passes = _Passes(rxr, capture=RADIO_PROFILE_PASS)
+    in_flight = _InFlight(txr, rxr)
+    wall, t_send, launches, out = run("radio-split", [rxr, txr], txr.in_port, pieces,
+                                      spacing["radio-split"])
+    in_flight.close()
+    note(out)
+    check_launches("radio-split", launches,
+                   ("sync_detect", "viterbi_decode", "viterbi_decode_many"))
+    check(rxr.constellation.points().shape[0] > 0 and rxr.spectrum.psd_db().max() > -200
+          and np.isfinite(rxr.snr_probe.snr_db()), "radio-split: probes not filled")
+    chunks = len(passes.seconds)
+    stages = {k: [v.calls, round(v.seconds * 1e3, 1)] for k, v in rxr.ex.tracer.report().items()}
+    print(f"radio-split: TxRadio(mcs {txr.mcs}, batch {txr.batch}, scale {txr.scale}) -> "
+          f"{txr.stats['samples_tx']} sc16 samples -> RxRadio(chunk {rxr.chunk}, block "
+          f"{rxr.ex.block} x {rxr.ex.cfg.time_shards}, {rxr.ex.max_frames} slots), source "
+          f"{type(txr.source).__name__}, sink {type(rxr.sink).__name__}, sample socket "
+          f"SO_RCVBUF {rcvbuf}, at most {in_flight.peak} samples ({in_flight.peak / 4096:.0f} "
+          f"datagrams) sent and not yet read: {n}/{n} pieces, canvas bit for bit, no dropped "
+          f"line; sent at "
+          f"{1e3 * spacing['radio-split']:g} ms spacing in {t_send:.2f} s; wall {wall:.2f} s, "
+          f"{n / wall:.0f} pieces/s; tx {json.dumps(txr.stats)}, rx {json.dumps(rxr.stats)}; "
+          f"chunk times {passes.summary()}; launches {json.dumps(launches)} "
+          f"({launches['sync_detect'] / chunks:.2f} sync_detect, "
+          f"{launches['viterbi_decode_many'] / chunks:.2f} viterbi_decode_many a chunk over "
+          f"{chunks} chunks); held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})}"
+          f"; executor Tracer [calls, ms] {json.dumps(stages)} ({card})")
+    again("radio-split", f"one chunk of {passes.args[0].size} samples", rxr,
+          lambda: rxr._process(passes.args[0], 0, set()))
+    phases["radio-split"] = launches
+    app.close()
+    return phases, inputs
 
 
 def main() -> None:
@@ -1191,9 +1576,7 @@ def main() -> None:
     k1d_call = cuda_ms(lambda: k1.sync_detect(blocks, *det_args), 20)
     k1d_glue = cuda_ms(dense_and_glue, 10)
     k1d_plain = cuda_ms(lambda: k1.sync_detect_plain(blocks, *det_args), 3)
-    k1d_bound = {"bytes": (rows * n_ext * 8 + rows * MAX_FRAMES * (4 + 1 + 8 + 4))
-                 / HBM_BYTES_PER_S * 1e3,
-                 "operations": rows * n_ext * K1_DETECT_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
+    k1d_bound = detect_bound(blocks, MAX_FRAMES)
 
     # K2 on the step's payload (pay) and SIGNAL (sig) trellises
     k2_pay, k2_sig = (cuda_ms(lambda: k2.viterbi_decode(v), 20) for v in (pay, sig))
@@ -1203,8 +1586,7 @@ def main() -> None:
     k2m_ms = cuda_ms(lambda: k2.viterbi_decode_many([pay, sig], [True, True]), 20)
     k2m_plain = cuda_ms(lambda: k2.viterbi_decode_many_plain([pay, sig], [True, True]), 2)
     k2_steps = n_slots * (payload_steps + 24)
-    k2_bound = {"bytes": k2_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
-                "operations": k2_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+    k2_bound = viterbi_bound(k2_steps)
     # the adaptive path's inputs (phase 12, the MCS-2 dense run): the
     # detector on (4, 262 960) with 128 slots, stage A's SIGNAL trellises
     # (the viterbi_decode row), one stage-B bucket (SIGNAL + payload)
@@ -1214,14 +1596,17 @@ def main() -> None:
     k2a_plain = cuda_ms(lambda: k2.viterbi_decode_plain(*amain["viterbi_decode"]), 3)
     k2b_ms = cuda_ms(lambda: k2.viterbi_decode_many(*amain["viterbi_decode_many"]), 20)
     k2a_steps = sig_a.shape[0] * sig_a.shape[1]
-    k2a_bound = {"bytes": k2a_steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
-                 "operations": k2a_steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
+    k2a_bound = viterbi_bound(k2a_steps)
+    k1a_bound = detect_bound(*amain["sync_detect"][:2])
+    k2b_bound = viterbi_bound(sum(v.shape[0] * v.shape[1]
+                                  for v in amain["viterbi_decode_many"][0]))
     print(f"adaptive path (MCS {MCS} dense run): sync_detect on "
           f"{tuple(amain['sync_detect'][0].shape)} with {amain['sync_detect'][1]} slots "
-          f"{k1a_ms:.4f} ms; viterbi_decode on stage A's {tuple(sig_a.shape)} {k2a_ms:.4f} ms, "
-          f"plain {k2a_plain:.3f} ms (bound {max(k2a_bound.values()):.5f}); viterbi_decode_many "
-          f"on a stage-B bucket {[tuple(v.shape) for v in amain['viterbi_decode_many'][0]]} "
-          f"{k2b_ms:.4f} ms (CUDA events; {card})")
+          f"{k1a_ms:.4f} ms (bound {bound_str(k1a_bound)}); viterbi_decode on stage A's "
+          f"{tuple(sig_a.shape)} {k2a_ms:.4f} ms, plain {k2a_plain:.3f} ms (bound "
+          f"{bound_str(k2a_bound)}); viterbi_decode_many on a stage-B bucket "
+          f"{[tuple(v.shape) for v in amain['viterbi_decode_many'][0]]} {k2b_ms:.4f} ms (bound "
+          f"{bound_str(k2b_bound)}) (CUDA events; {card})")
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.split()[0])
@@ -1287,6 +1672,24 @@ def main() -> None:
     print(f"library yardsticks (conv1d, TF32 off): fir {k3_lib:.4f} ms (max |dy| vs K3 "
           f"{k3_lib_err:.3g}), resample {k4_lib:.4f} ms (max |dy| vs K4 {k4_lib_err:.3g})")
 
+    # -- 18-19. the radios ----------------------------------------------
+    radio_launches, radio_inputs = radio_phases(dev, card, reset, counts, held)
+    for label, calls in radio_inputs.items():
+        det_args, det_kw = calls["sync_detect"]
+        vit_args, vit_kw = calls["viterbi_decode_many"]
+        det_ms = cuda_ms(lambda: k1.sync_detect(*det_args, **det_kw), 20)
+        vit_ms = cuda_ms(lambda: k2.viterbi_decode_many(*vit_args, **vit_kw), 20)
+        longest = max(v.shape[1] for v in vit_args[0])
+        print(f"{label}, a steady pass's largest calls: sync_detect on "
+              f"{tuple(det_args[0].shape)} with {det_args[1]} slots {det_ms:.4f} ms (bound "
+              f"{bound_str(detect_bound(*det_args[:2]))}); viterbi_decode_many on "
+              f"{[tuple(v.shape) for v in vit_args[0]]} {vit_ms:.4f} ms (bound "
+              f"{bound_str(viterbi_bound(sum(v.shape[0] * v.shape[1] for v in vit_args[0])))}; "
+              f"chain floor of the design {longest} steps x {K2_ACS_CYCLES + K2_TRACEBACK_CYCLES}"
+              f" cycles at {sm_mhz:.0f} MHz "
+              f"{longest * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3):.4f} ms) "
+              f"(CUDA events; {card})")
+
     pkg_src = f"{PKG}/csrc"
     jax_ops = "gnuradio_wifi_imagetransfer_tpu/ops"
     def held_err(name, err):
@@ -1316,7 +1719,8 @@ def main() -> None:
         out.append({"name": name, "route": "cuda", "source": f"{pkg_src}/{src}",
                     "replaces": f"{jax_ops}/{replaces}", "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
-                    "bound_by": by, "library_ms": lib})
+                    "bound_by": by, "library_ms": lib,
+                    "radio_launches": {k: v[name] for k, v in radio_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

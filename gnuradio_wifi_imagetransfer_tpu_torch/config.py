@@ -10,7 +10,8 @@ Reference parameter provenance:
 
 ``FrontendConfig`` configures the rate-conversion front-end
 (``parallel/frontend.py``), which the local ``StreamExecutor`` runs on the
-device ahead of sync.
+device ahead of sync. ``AppConfig`` holds the application-layer constants
+of the radios and apps (``runtime/``).
 """
 
 from __future__ import annotations
@@ -96,3 +97,22 @@ class ExecutorConfig:
     channels: int = 1                  # parallel 20 MHz channels
     time_shards: int = 1               # time blocks per step
     wire_format: str = "f32"           # host->device sample format: f32, sc16, sc8
+
+
+@dataclasses.dataclass(frozen=True)
+class AppConfig:
+    """Application-layer constants (upload/download apps).
+
+    Reference provenance: HOST/PORT constants upload_featuremap_udp.py:20-22,
+    download_featuremap_udp.py:18-22; image size upload_image_udp.py:21;
+    piece spacing upload_image_udp.py:33.
+    """
+
+    tx_host: str = "127.0.0.1"
+    tx_port: int = 52001               # app -> radio UDP (IRS_user.grc:311-318)
+    rx_host: str = "127.0.0.1"
+    rx_port: int = 10010               # radio -> app UDP (IRS_AP_epy_block_2.py:38)
+    image_size: tuple[int, int] = (300, 300)
+    piece_size: tuple[int, int] = (10, 10)
+    piece_interval_s: float = 0.05
+    pdu_length: int = 50               # frame payload bytes (IRS_user.py:104)

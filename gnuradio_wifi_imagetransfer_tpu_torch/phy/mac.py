@@ -13,8 +13,9 @@ Two CRC-32 paths:
     to the host. torch has no full uint32 arithmetic, so it runs in int64
     (every value stays below 2**32).
 
-``frame_batch`` is the numpy + zlib framer (the JAX package also has a
-native C++ one; the port has no native loader yet).
+``frame_batch`` takes the native C++ framer (runtime/native.py) when the
+toolchain is available, as the JAX package's does, and the numpy + zlib
+framer otherwise; both give the same bytes.
 """
 
 from __future__ import annotations
@@ -88,7 +89,19 @@ def frame_batch(payloads: np.ndarray, seq0: int = 0,
                 src: bytes = DEFAULT_SRC, dst: bytes = DEFAULT_DST,
                 bss: bytes = DEFAULT_BSS) -> np.ndarray:
     """Vectorized framer: (B, L) payload bytes -> (B, L+28) MPDUs with
-    consecutive sequence numbers starting at seq0."""
+    consecutive sequence numbers starting at seq0: the native framer when
+    ``native.available()``, else ``frame_batch_numpy``."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native
+
+    if native.available():
+        return native.frame_batch(payloads, seq0, src, dst, bss)
+    return frame_batch_numpy(payloads, seq0, src, dst, bss)
+
+
+def frame_batch_numpy(payloads: np.ndarray, seq0: int = 0,
+                      src: bytes = DEFAULT_SRC, dst: bytes = DEFAULT_DST,
+                      bss: bytes = DEFAULT_BSS) -> np.ndarray:
+    """``frame_batch`` in numpy + zlib."""
     b, l = payloads.shape
     out = np.empty((b, HEADER_LEN + l + FCS_LEN), dtype=np.uint8)
     out[:, :22] = np.frombuffer(

@@ -1,0 +1,528 @@
+"""Socket-PDU UDP bridge and the software radios (PyTorch port of the JAX
+package's runtime/bridge.py).
+
+Drop-in port compatibility with the reference's process topology:
+
+  app --UDP 52001--> [radio] --UDP 10010--> app
+
+* UdpSource  = network.socket_pdu('UDP_SERVER', '', 52001, 10000)
+  (IRS_user.grc:299-318): each datagram becomes one MAC payload.
+* UdpSink    = the "Extract Pics" embedded block (IRS_AP_epy_block_2.py:
+  27-41): strips the 4-byte length prefix of the MAC payload and forwards
+  the rest to localhost:10010.
+* LoopbackRadio = the IRS_tranceiver flowgraph: MAC -> 802.11a TX ->
+  multiply 10^(snr/20) -> channel_model -> full RX (sync + decode) -> MAC
+  parse -> UDP out, with the PHY in torch on the radio's device.
+  Datagrams are micro-batched so the device sees frame batches, not single
+  frames.
+* TxRadio / RxRadio = the IRS_user / IRS_AP two-node topology, with sc16
+  I/Q sample datagrams standing in for RF.
+
+The sockets are host code: ``make_udp_source`` / ``make_udp_sink`` take the
+native C++ classes (runtime/native.py) when the toolchain is there and the
+Python ones otherwise. The PHY runs on ``device`` ("cuda" unless the caller
+asks for the CPU), through the hand-written kernels on a card.
+
+The radio loops catch ``Exception`` and print "dropped ..." so that one bad
+datagram does not kill a radio, as the reference's do; a caller that must
+see every failure (a test, a smoke run) watches stdout for those lines.
+"""
+
+from __future__ import annotations
+
+import queue
+import socket
+import threading
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from gnuradio_wifi_imagetransfer_tpu_torch.channel import model as chmodel
+from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+    ChannelEstimator,
+    ExecutorConfig,
+    PhyConfig,
+)
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import AdaptiveStreamExecutor
+from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac as macmod
+from gnuradio_wifi_imagetransfer_tpu_torch.phy import params, sync, tx
+from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native
+from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.xfer import SC16_FULL_SCALE, quantize_sc16, to_riq
+
+# deep kernel receive buffer (capped by net.core.rmem_max): senders burst
+# faster than a GIL-bound drain thread during device dispatch, and the
+# ~208 KiB default silently drops the overflow
+RCVBUF_BYTES = 4 * 1024 * 1024
+
+
+def _dropped(radio: str, what: str, e: Exception) -> None:
+    """Report a batch or chunk a radio loop gave up on, and carry on."""
+    print(f"{radio}: dropped {what} ({type(e).__name__}: {e})")
+    traceback.print_exc()
+
+
+class UdpSource:
+    """UDP server socket -> payload queue (socket_pdu equivalent)."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 52001, mtu: int = 10000):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RCVBUF_BYTES)
+        self.sock.bind((host, port))
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self.q: "queue.Queue[bytes]" = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.mtu = mtu
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                data, _ = self.sock.recvfrom(self.mtu)
+                self.q.put(data)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+
+    def drain(self, max_items: int, timeout: float = 0.05) -> list[bytes]:
+        """Collect up to max_items pending datagrams (micro-batching)."""
+        out = []
+        deadline = time.monotonic() + timeout
+        while len(out) < max_items:
+            try:
+                remaining = max(deadline - time.monotonic(), 0)
+                out.append(self.q.get(timeout=remaining if not out else 0.0))
+            except queue.Empty:
+                break
+        return out
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():             # join() before start() raises
+            self._thread.join(timeout=1.0)
+        self.sock.close()
+
+
+class UdpSink:
+    """MAC payload -> strip 4-byte prefix -> UDP sendto (Extract Pics)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 10010):
+        self.addr = (host, port)
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def send_mac_payload(self, payload: bytes):
+        """payload = MPDU body after the 24-byte header; the sender's
+        4-byte length prefix is dropped (IRS_AP_epy_block_2.py:34-38)."""
+        self.sock.sendto(payload[4:], self.addr)
+
+    def close(self):
+        self.sock.close()
+
+
+def make_udp_source(host: str = "0.0.0.0", port: int = 52001, mtu: int = 10000):
+    """socket_pdu source factory: the native C++ receive thread when the
+    toolchain is available, the Python thread otherwise. Both expose
+    start()/drain()/stop()/.port."""
+    if native.available():
+        try:
+            return native.NativeUdpSource(host, port, mtu)
+        except OSError:
+            pass
+    return UdpSource(host, port, mtu)
+
+
+class NativeExtractSink:
+    """UdpSink (Extract Pics) over the native UDP sender."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 10010):
+        self._sink = native.NativeUdpSink(host, port)
+
+    def send_mac_payload(self, payload: bytes):
+        self._sink.send(payload[4:])
+
+    def close(self):
+        self._sink.close()
+
+
+def make_udp_sink(host: str = "127.0.0.1", port: int = 10010):
+    """Extract-Pics sink factory (native when available)."""
+    if native.available():
+        try:
+            return NativeExtractSink(host, port)
+        except OSError:
+            pass
+    return UdpSink(host, port)
+
+
+def _mpdus(mac: macmod.Mac, group: list[bytes]) -> np.ndarray:
+    """Equal-length payloads -> (B, L + 28) uint8 MPDUs, framed in order."""
+    return np.stack([np.frombuffer(mac.frame(p), dtype=np.uint8) for p in group])
+
+
+def _by_length(payloads: list[bytes]) -> list[list[bytes]]:
+    """Payloads grouped by length, groups in order of first appearance."""
+    by_len: dict[int, list[bytes]] = {}
+    for p in payloads:
+        by_len.setdefault(len(p), []).append(p)
+    return list(by_len.values())
+
+
+class LoopbackRadio:
+    """Software transceiver: UDP in -> 802.11a PHY loopback -> UDP out.
+
+    Equivalent to running IRS_tranceiver.grc: the de-facto integration
+    harness, with SNR/CFO knobs matching its GUI sliders (snr 20-30 dB,
+    epsilon +-20e-6; IRS_tranceiver.py:98,121).
+
+    A batch of up to ``batch`` datagrams is grouped by payload length, and
+    each group goes through TX, the channel and RX as one frame batch of
+    its own size. The JAX package pads each group up to ``batch`` with
+    copies of its last payload, which bounds its jit compiles; eager torch
+    compiles nothing, so the port sends no copies, and ``stats["frames_ok"]``
+    counts each decoded frame once (the JAX package's also counts the
+    copies).
+
+    The noise of a group comes from a ``torch.Generator`` on the radio's
+    device, seeded from the radio's numpy ``default_rng(seed)``, one draw a
+    group, as the JAX package seeds its PRNG key.
+    """
+
+    def __init__(
+        self,
+        in_port: int = 52001,
+        out_host: str = "127.0.0.1",
+        out_port: int = 10010,
+        mcs: int = 3,                    # loopback default QPSK 3/4 (IRS_tranceiver.py:91)
+        snr_db: float = 22.0,
+        epsilon: float = 0.0,
+        phy_cfg: PhyConfig = PhyConfig(),
+        batch: int = 8,
+        seed: int = 0,
+        probes: bool = False,
+        device="cuda",
+    ):
+        self.device = resolve(device)
+        self.source = make_udp_source(port=in_port)
+        self.sink = make_udp_sink(out_host, out_port)
+        self.mcs = mcs
+        self.snr_db = snr_db
+        self.epsilon = epsilon
+        self.chan_est = ChannelEstimator(phy_cfg.chan_est)
+        self.cfg = phy_cfg
+        self.batch = batch
+        self.mac = macmod.Mac()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._rng = np.random.default_rng(seed)
+        self.stats = {"datagrams_in": 0, "frames_ok": 0, "frames_crc_fail": 0}
+        # headless GUI-sink analogues (constellation / spectrum / SNR),
+        # populated when probes=True
+        self.probes = probes
+        self.constellation = tracing.ConstellationProbe()
+        self.spectrum = tracing.SpectrumProbe()
+        self.snr_probe = tracing.SnrProbe(alpha=0.05)
+
+    @property
+    def in_port(self) -> int:
+        return self.source.port
+
+    # -- live reconfiguration (the GUI-variable setters of the reference
+    #    top blocks: set_encoding IRS_user.py:221-273, snr/epsilon sliders
+    #    IRS_tranceiver.py:370-375,429-434). Attribute stores are atomic;
+    #    the radio thread reads mcs and chan_est once a batch, snr and
+    #    epsilon once a group. ---------------------------------------------
+
+    def set_encoding(self, mcs: int) -> None:
+        """Live MCS change (reference wifi_phy_hier.set_encoding)."""
+        self.mcs = int(mcs)
+
+    set_mcs = set_encoding
+
+    def set_snr(self, snr_db: float) -> None:
+        self.snr_db = float(snr_db)
+
+    def set_epsilon(self, epsilon: float) -> None:
+        self.epsilon = float(epsilon)
+
+    def set_chan_est(self, algo) -> None:
+        """Live equalizer-algorithm change (IRS_AP.py:139-141)."""
+        self.chan_est = ChannelEstimator(algo)
+
+    def start(self):
+        self.source.start()
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():             # join() before start() raises
+            self._thread.join(timeout=5.0)
+        self.source.stop()
+        self.sink.close()
+
+    # -- the radio loop ----------------------------------------------------
+
+    def _process(self, payloads: list[bytes]) -> None:
+        """One batch of datagrams through MAC, PHY, channel and back."""
+        # snapshot the live-tunable settings ONCE a batch, so a concurrent
+        # set_encoding()/set_chan_est() never splits a batch between two
+        # settings
+        mcs_now = self.mcs
+        algo_now = self.chan_est
+        dev = self.device
+        for group in _by_length(payloads):
+            mpdus = _mpdus(self.mac, group)
+            b = len(group)
+            plan = tx.tx_plan(mcs_now, mpdus.shape[1])
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(self._rng.integers(0, 2**31)))
+            foff = chmodel.epsilon_to_frequency_offset(self.epsilon, self.cfg.frequency)
+            bursts = tx.transmit(mpdus, mcs_now, scrambler_seed=torch.arange(b) % 127 + 1,
+                                 device=dev)
+            stream = tx.pad_burst(bursts, 100, 400, scale=0.6).reshape(-1)
+            y = chmodel.channel_model(gen, stream, noise_voltage=1.0, frequency_offset=foff,
+                                      snr_db=self.snr_db)
+            res, cand = sync.receive(y, plan, max_frames=2 * b, cfg=self.cfg, algo=algo_now,
+                                     device=dev)
+            psdu = res.psdu.cpu().numpy()
+            ok = (cand.valid & res.sig["parity_ok"]).cpu().numpy()
+            eq = None
+            if self.probes:
+                self.spectrum.update(y[: 1 << 13].cpu().numpy())
+                eq = res.eq_symbols.cpu().numpy()
+            for i in np.flatnonzero(ok):
+                frame = macmod.parse(psdu[i].tobytes())
+                if not frame.fcs_ok:
+                    self.stats["frames_crc_fail"] += 1
+                    continue
+                self.stats["frames_ok"] += 1
+                if eq is not None:
+                    self.constellation.push(eq[i])
+                    self.snr_probe.update(eq[i])
+                self.sink.send_mac_payload(frame.payload)
+
+    def _run(self):
+        while not self._stop.is_set():
+            payloads = self.source.drain(self.batch, timeout=0.1)
+            if not payloads:
+                continue
+            self.stats["datagrams_in"] += len(payloads)
+            try:
+                self._process(payloads)
+            except Exception as e:  # keep the radio alive on bad input
+                _dropped("LoopbackRadio", "batch", e)
+
+
+# ---------------------------------------------------------------------------
+# Split TX / RX radios (the IRS_user / IRS_AP two-node topology)
+# ---------------------------------------------------------------------------
+
+_SAMP_CHUNK = 4096      # samples per UDP sample datagram (16 KiB of sc16)
+
+
+class TxRadio:
+    """The IRS_user node: UDP payloads -> MAC -> 802.11a TX -> sc16 I/Q
+    sample datagrams (the role of the SoapySDR HackRF sink,
+    IRS_user.py:161-173, with UDP standing in for RF).
+
+    Samples leave as raw interleaved int16 I/Q (UHD's native over-the-wire
+    format) in _SAMP_CHUNK-sample datagrams. A batch is grouped by payload
+    length and each group is sent as it is, with scrambler seeds 1..B (the
+    JAX package pads a group up to ``batch`` with copies for its jit
+    cache; the port sends no copies).
+    """
+
+    def __init__(self, in_port: int = 52001, samp_host: str = "127.0.0.1",
+                 samp_port: int = 52100, mcs: int = 2, scale: float = 0.5,
+                 batch: int = 4, phy_cfg: PhyConfig = PhyConfig(), device="cuda"):
+        self.device = resolve(device)
+        self.source = make_udp_source(port=in_port)
+        self.samp_addr = (samp_host, samp_port)
+        self.samp_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.mcs = mcs
+        self.scale = scale
+        self.batch = batch
+        self.cfg = phy_cfg
+        self.mac = macmod.Mac()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.stats = {"datagrams_in": 0, "frames_tx": 0, "samples_tx": 0}
+
+    @property
+    def in_port(self) -> int:
+        return self.source.port
+
+    def start(self):
+        self.source.start()
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():     # join() before start() raises
+            self._thread.join(timeout=5.0)
+        self.source.stop()
+        self.samp_sock.close()
+
+    def _emit(self, samples: np.ndarray):
+        sc16 = quantize_sc16(to_riq(samples))              # (N, 2) int16
+        for lo in range(0, sc16.shape[0], _SAMP_CHUNK):
+            self.samp_sock.sendto(sc16[lo: lo + _SAMP_CHUNK].tobytes(), self.samp_addr)
+        self.stats["samples_tx"] += int(sc16.shape[0])
+
+    def _process(self, payloads: list[bytes]) -> None:
+        for group in _by_length(payloads):
+            mpdus = _mpdus(self.mac, group)
+            bursts = tx.transmit(mpdus, self.mcs, scrambler_seed=torch.arange(1, len(group) + 1),
+                                 device=self.device)
+            stream = tx.pad_burst(bursts, 100, 1000, scale=self.scale).reshape(-1)
+            self._emit(stream.cpu().numpy())
+            self.stats["frames_tx"] += len(group)
+
+    def _run(self):
+        while not self._stop.is_set():
+            payloads = self.source.drain(self.batch, timeout=0.1)
+            if not payloads:
+                continue
+            self.stats["datagrams_in"] += len(payloads)
+            try:
+                self._process(payloads)
+            except Exception as e:
+                _dropped("TxRadio", "batch", e)
+
+
+class RxRadio:
+    """The IRS_AP node: sc16 I/Q sample datagrams -> SIGNAL-steered
+    streaming RX (AdaptiveStreamExecutor) -> MAC parse/FCS -> Extract-Pics
+    UDP out (IRS_AP.py:163-316 with UDP standing in for the USRP source).
+
+    Samples accumulate into a buffer; a processing pass runs when it holds
+    ``chunk`` samples, or after 0.3 s without a datagram. Each pass keeps a
+    worst-case-frame tail as overlap and dedups frames across passes by
+    their absolute sample index (within 2 samples).
+
+    A frame whose burst may run past the end of a chunk pass's buffer is
+    left for the next pass, which holds it whole (the tail is the longest
+    window); when a pass left one, the idle flush runs even on a buffer of
+    just the tail. The idle flush leaves nothing: it decodes a cut burst
+    from the zero padding, as every JAX pass does. The JAX package thus
+    counts an FCS failure for a frame cut by a chunk pass and marks its
+    index seen, so the whole frame is skipped as a duplicate in the next
+    pass and lost.
+    """
+
+    def __init__(self, samp_port: int = 52100, out_host: str = "127.0.0.1",
+                 out_port: int = 10010, chunk: int = 1 << 17,
+                 exec_cfg: ExecutorConfig | None = None, phy_cfg: PhyConfig = PhyConfig(),
+                 algo=None, probes: bool = True, device="cuda"):
+        if exec_cfg is None:
+            exec_cfg = ExecutorConfig(block_size=1 << 15, time_shards=4,
+                                      max_frames_per_block=16)
+        self.ex = AdaptiveStreamExecutor(mesh=None, exec_cfg=exec_cfg, phy_cfg=phy_cfg,
+                                         algo=algo, capture_symbols=probes, device=device)
+        self.samp_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        # sample datagrams arrive at wire rate: deep kernel buffer so a
+        # processing pass doesn't drop the next chunk burst
+        self.samp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RCVBUF_BYTES)
+        self.samp_sock.bind(("0.0.0.0", samp_port))
+        self.samp_sock.settimeout(0.1)
+        self.samp_port = self.samp_sock.getsockname()[1]
+        self.sink = make_udp_sink(out_host, out_port)
+        self.chunk = chunk
+        # headless GUI-sink analogues (IRS_AP's constellation / freq sinks
+        # + probe_mpsk_snr_est_c): equalized symbols, PSD, running SNR
+        self.probes = probes
+        self.constellation = tracing.ConstellationProbe()
+        self.spectrum = tracing.SpectrumProbe()
+        self.snr_probe = tracing.SnrProbe(alpha=0.05)
+        # overlap tail: the worst-case frame span at the slowest rate
+        self.tail = sync.window_len(params.n_symbols(0, phy_cfg.max_psdu_bytes))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.stats = {"samples_in": 0, "frames_ok": 0, "frames_crc_fail": 0}
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():     # join() before start() raises
+            self._thread.join(timeout=10.0)
+        self.samp_sock.close()
+        self.sink.close()
+
+    def _run(self):
+        buf = np.zeros(0, np.complex64)
+        base = 0                       # absolute index of buf[0]
+        seen: set[int] = set()
+        last_rx = time.monotonic()
+        deferred = False               # the last pass left a cut frame
+        while not self._stop.is_set():
+            try:
+                data, _ = self.samp_sock.recvfrom(65536)
+                sc16 = np.frombuffer(data, np.int16).reshape(-1, 2)
+                samples = ((sc16[:, 0] + 1j * sc16[:, 1])
+                           * (SC16_FULL_SCALE / 32767.0)).astype(np.complex64)
+                buf = np.concatenate([buf, samples])
+                self.stats["samples_in"] += samples.size
+                last_rx = time.monotonic()
+            except socket.timeout:
+                pass
+            except OSError:
+                break
+            idle = time.monotonic() - last_rx > 0.3
+            full = buf.size >= self.chunk
+            if full or (idle and (buf.size > self.tail or deferred)):
+                deferred = False
+                try:
+                    deferred = self._process(buf, base, seen, final=not full)
+                except Exception as e:
+                    _dropped("RxRadio", "chunk", e)
+                keep = min(self.tail, buf.size)
+                base += buf.size - keep
+                buf = buf[-keep:].copy()
+                seen = {g for g in seen if g >= base}
+                last_rx = time.monotonic()
+
+    def _process(self, buf: np.ndarray, base: int, seen: set[int],
+                 final: bool = False) -> bool:
+        """One pass over buf (absolute index of buf[0] is base): decode,
+        dedup against seen (updated), parse and forward. Unless ``final``,
+        a frame whose burst may run past buf's end is left for the next
+        pass; returns whether one was."""
+        if self.probes:
+            self.spectrum.update(buf[: 1 << 14])
+        deferred = False
+        for rec in self.ex.run(buf):
+            if not rec.parity_ok:
+                continue
+            # the sync edge lies inside the STF: the burst ends by this
+            n_sym = params.n_symbols(rec.rate_idx, rec.length)
+            burst_end = rec.global_start + params.PREAMBLE_LEN + (1 + n_sym) * params.N_SYM
+            if not final and burst_end > buf.size:
+                deferred = True         # cut by the buffer's end: next pass
+                continue
+            if self.probes and rec.eq_symbols is not None:
+                self.constellation.push(rec.eq_symbols)
+                self.snr_probe.update(rec.eq_symbols)
+            gidx = base + rec.global_start
+            if gidx in seen or any(abs(gidx - s) <= 2 for s in seen):
+                continue
+            seen.add(gidx)
+            frame = macmod.parse(rec.psdu.tobytes())
+            if not frame.fcs_ok:
+                self.stats["frames_crc_fail"] += 1
+                continue
+            self.stats["frames_ok"] += 1
+            self.sink.send_mac_payload(frame.payload)
+        return deferred

@@ -45,7 +45,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                or n == "jax" or n.startswith("jax."))]
         assert not bad, bad
         new = {port.__name__ + "." + m for m in (
-            "channel", "channel.model", "phy.mac", "parallel.adaptive", "parallel.executor")}
+            "channel", "channel.model", "phy.mac", "parallel.adaptive", "parallel.executor",
+            "runtime.bridge", "runtime.native", "utils.image", "utils.tracing")}
         assert new <= set(sys.modules), new - set(sys.modules)
         print("OK", len([n for n in sys.modules if n.startswith(port.__name__)]))
     """)

@@ -1,0 +1,129 @@
+"""The port's observability (utils/tracing.py) against the JAX package's:
+the Tracer's summary and reset, the three GUI-sink probes on the same
+numpy input (equal outputs: both run the same numpy arithmetic), and the
+torch.profiler scope."""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from gnuradio_wifi_imagetransfer_tpu.utils import tracing as jtracing
+from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
+
+torch.set_num_threads(2)
+
+
+def test_tracer_counts_summary_and_reset():
+    tr = tracing.Tracer()
+    with tr.stage("demod", samples=1000, frames=2):
+        pass
+    tr.count("demod", samples=500)
+    rep = tr.report()
+    assert rep["demod"].samples == 1500
+    assert rep["demod"].frames == 2
+    assert rep["demod"].calls == 2
+    assert rep["demod"].throughput_msps() > 0
+    assert tracing.StageStats().throughput_msps() == 0.0
+    assert "demod" in tr.summary()
+    # the same table as the JAX Tracer's for the same counts
+    jt = jtracing.Tracer()
+    jt.count("demod", samples=1500, frames=2, calls=2)
+    tr.reset()
+    assert tr.report() == {}
+    tr.count("demod", samples=1500, frames=2, calls=2)
+    assert tr.summary() == jt.summary()
+    assert tracing.default_tracer() is tracing.default_tracer()
+
+
+def _qpsk(rng, n, snr_db):
+    sigma = 10 ** (-snr_db / 20) / np.sqrt(2)
+    s = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
+    return s + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+
+
+def test_snr_probe_matches_jax():
+    rng = np.random.default_rng(1)
+    probe, jprobe = tracing.SnrProbe(alpha=0.05), jtracing.SnrProbe(alpha=0.05)
+    assert np.isnan(probe.snr_db()) and np.isnan(jprobe.snr_db())
+    for _ in range(200):
+        s = _qpsk(rng, 256, 15.0)
+        est = probe.update(s)
+        assert est == jprobe.update(s)
+    assert abs(est - 15.0) < 2.0, est
+
+
+def test_constellation_probe_matches_jax():
+    p, jp = tracing.ConstellationProbe(capacity=8), jtracing.ConstellationProbe(capacity=8)
+    for chunk in (np.arange(5) + 1j * np.arange(5), np.arange(5, 11) + 0j,
+                  np.arange(20) * (1 - 1j), np.array([], np.complex64)):
+        p.push(chunk)
+        jp.push(chunk)
+        for n in (None, 3, 100):
+            assert np.array_equal(p.points(n), jp.points(n))
+    pts = p.points()
+    assert pts.shape == (8, 2) and pts.dtype == np.float32
+    np.testing.assert_allclose(pts[:, 0], np.arange(12, 20))
+
+
+def test_spectrum_probe_matches_jax():
+    p, jp = tracing.SpectrumProbe(nfft=256, alpha=0.5), jtracing.SpectrumProbe(nfft=256, alpha=0.5)
+    assert np.array_equal(p.psd_db(), jp.psd_db())
+    assert np.all(p.psd_db() <= -199)      # empty floor
+    n = np.arange(4096)
+    rng = np.random.default_rng(2)
+    for x in (np.exp(2j * np.pi * 0.125 * n).astype(np.complex64),
+              rng.standard_normal(1000) + 1j * rng.standard_normal(1000),
+              np.ones(100, np.complex64)):           # shorter than nfft: ignored
+        p.update(x)
+        jp.update(x)
+        assert np.array_equal(p.psd_db(), jp.psd_db())
+    # fftshifted: +fs/8 lands at bin nfft/2 + nfft/8
+    assert int(np.argmax(p.psd_db())) == 256 // 2 + 256 // 8
+
+
+def test_profile_none_is_a_noop():
+    with tracing.profile(None) as prof:
+        torch.ones(4).sum()
+    assert prof is None
+
+
+def test_profile_writes_a_chrome_trace(tmp_path):
+    logdir = tmp_path / "trace"
+    with tracing.profile(str(logdir)):
+        with torch.profiler.record_function("executor.test"):
+            (torch.arange(64.0) * 2).sum()
+    files = list(pathlib.Path(logdir).glob("torch_trace_*.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert "executor.test" in names
+
+
+def test_evm_snr_db_tracks_noise():
+    """The executors' per-frame metric, as tests/test_tracing.py checks
+    the JAX one."""
+    rng = np.random.default_rng(0)
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import mapping
+
+    bits = torch.from_numpy(rng.integers(0, 2, (4, 6 * 48), dtype=np.uint8))
+    clean = mapping.map_bits(bits, 0).reshape(4, 6, 48).numpy()
+    for snr_db in (10.0, 25.0):
+        sigma = 10 ** (-snr_db / 20) / np.sqrt(2)
+        noise = sigma * (rng.standard_normal(clean.shape) + 1j * rng.standard_normal(clean.shape))
+        est = tracing.evm_snr_db(torch.from_numpy((clean + noise).astype(np.complex64)), 0)
+        assert est.shape == (4,)
+        assert bool((est - snr_db).abs().max() < 2.0), (snr_db, est)
+
+
+@pytest.mark.parametrize("name", ["SnrProbe", "ConstellationProbe", "SpectrumProbe",
+                                  "Tracer", "StageStats", "profile", "default_tracer"])
+def test_tracing_api_matches_jax(name):
+    import inspect
+
+    ours, theirs = getattr(tracing, name), getattr(jtracing, name)
+    assert inspect.signature(ours).parameters.keys() == inspect.signature(theirs).parameters.keys()
+    if inspect.isclass(ours):
+        public = {n for n in dir(theirs) if not n.startswith("_")}
+        assert public <= set(dir(ours)), public - set(dir(ours))
