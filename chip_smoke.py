@@ -115,17 +115,43 @@ holds each hand-written kernel against its plain PyTorch version:
      viterbi_decode_many (and in phase 19 viterbi_decode) must launch,
      dense K1, K3 and K4 not. Prints pieces/s, the batch or chunk pass
      times, RxRadio's Tracer, a profiled batch and chunk, and K1 and K2
-     timed at the radios' first calls beside their bounds; then one JSON
-     line of kernel timings, bounds and launch counts (each kernel's
-     ``radio_launches`` are those of phases 18 and 19).
+     timed at the radios' first calls beside their bounds;
+ 20. both modes' web apps over ``LoopbackRadio`` at its defaults, each image
+     posted to the sender page as a browser does (multipart PNG). Mode 2:
+     ``SenderApp`` -> the radio -> ``ReceiverApp`` with the AppConfig image
+     (300 x 300 x 3); the canvas bit for bit, one SSE event, the RF panel
+     (/constellation, /spectrum) and a live retune through POST /radio
+     (MCS 5, 30 dB, 2e-6, STA, probes on) with a second run;
+ 21. Mode 1 at full width: ``JSCE.packaged()`` on the card (240 x 240,
+     c = 128), warmed, two 240 x 240 kodim23 crops for users "3-4" and
+     "13-10" posted to ``FeatureMapSenderApp``; its (30, 30, 128) latent as
+     1 152 float32 pieces through the radio to ``FeatureMapReceiverApp`` on
+     the card, which must hold it bit for bit and whose last
+     reconstruction must be msg2img of the sent latent. The senders send
+     one lap of pieces at a time, 1 ms apart (the reference's 50 ms would
+     take 58 s a lap of the latent), and post again while the receiver is
+     not whole. Each run prints no "dropped" line, launches
+     ``sync_detect`` and ``viterbi_decode_many`` (dense K1, K3 and K4
+     not), holds its first RADIO_HELD kernel calls against their plain
+     versions, and prints pieces/s, batch times, decodes/s; then the
+     codec's img2msg and msg2img (CUDA events, median of 20) and profiles;
+ 22. the codec on the card against its CPU path on the crops (latent
+     within 1e-4, reconstructions within 1 LSB), then make_weights.py's
+     held-out protocol (16 kodim23 crops, seed 123) on the card: PSNR
+     and SSIM per user beside the npz meta's, PSNR no lower than the
+     meta's less 0.5 dB (the meta was measured on a TPU);
+     then one JSON line of kernel timings, bounds and launch counts (each
+     kernel's ``radio_launches`` are those of phases 18 and 19, its
+     ``app_launches`` those of 20 and 21).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
 JSON line; two checkouts are compared by running it in turns (A, B, B,
 A). It builds the kernels into that checkout's own build directory.
 
-Launch counts are set to 0 just before each main-path run (7 to 13, and
-each radio run of 18-19) and read just after; launches made to compare or
+Launch counts are set to 0 just before each main-path run (7 to 13, each
+radio run of 18-19 and the first run of each app phase, 20-21) and read
+just after; launches made to compare or
 time a kernel do not count.
 A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
@@ -179,6 +205,24 @@ RADIO_IMAGE = (300, 300, 3)
 RADIO_SPACING = {"radio-loopback": 0.001, "radio-split": 0.005}
 RADIO_HELD = 8                       # kernel calls a radio run holds against the plain versions
 RADIO_PROFILE_PASS = 4               # the batch or chunk profiled again after a run
+
+# the apps' traffic (phases 20-21): each sender re-sends its pieces in laps
+# 1 ms apart (the reference's 50 ms would take 58 s a lap of the Mode-1
+# latent's 1 152 pieces and 135 s of the Mode-2 image's 2 700)
+APP_SPACING = 0.001
+APP_TIMEOUT = 60.0                   # seconds a sender may take for one lap
+APP_MAX_LAPS = 8                     # laps a run may take to bring the whole image or latent
+# the Mode-1 users' images: the kodim23 crops (y, x) of tests/test_mode1_e2e.py
+MODE1_IMAGE = "assets/kodim23.png"
+MODE1_CROPS = {"3-4": (10, 20), "13-10": (250, 240)}
+CODEC_TIMED = 20                     # img2msg and msg2img calls timed (CUDA events), median
+CODEC_LATENT_ATOL = 1e-4             # the card's latent against the CPU path's
+# make_weights.py's held-out protocol (eval_holdout): 16 crops of kodim23,
+# seed 123. The npz meta's PSNR was measured at save time on a TPU, whose
+# convolutions round otherwise than float32 on the card: the card may fall
+# short of it by PSNR_MARGIN_DB
+HOLDOUT_CROPS, HOLDOUT_SEED = 16, 123
+PSNR_MARGIN_DB = 0.5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -862,15 +906,16 @@ def send_paced(pieces, port: int, spacing: float) -> float:
 
 
 class _Passes:
-    """Times each call of a radio's ``_process`` (a batch or a chunk) and
-    keeps a copy of the arguments of call number ``capture`` (from 0; of
-    the last call when there are fewer)."""
+    """Times each call of ``obj.<attr>`` (a radio's ``_process``: a batch or
+    a chunk; a codec's ``msg2img``) and keeps a copy of the arguments of
+    call number ``capture`` (from 0; of the last call when there are
+    fewer)."""
 
-    def __init__(self, radio, capture: int):
-        self.fn, self.capture = radio._process, capture
+    def __init__(self, obj, capture: int, attr: str = "_process"):
+        self.fn, self.capture = getattr(obj, attr), capture
         self.seconds: list[float] = []
         self.args = None
-        radio._process = self
+        setattr(obj, attr, self)
 
     def __call__(self, *args, **kwargs):
         if len(self.seconds) <= self.capture:
@@ -1112,6 +1157,395 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
     phases["radio-split"] = launches
     app.close()
     return phases, inputs
+
+
+def http(url: str, data: bytes | None = None, ctype: str | None = None,
+         method: str | None = None) -> bytes:
+    """One HTTP request to an app; the response body."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def multipart(images) -> tuple[bytes, str]:
+    """The sender page's form as a browser posts it: image0, image1, ... as
+    PNG files; (body, Content-Type)."""
+    import io
+
+    from PIL import Image
+
+    boundary = "chip-smoke-boundary"
+    body = io.BytesIO()
+    for i, img in enumerate(images):
+        png = io.BytesIO()
+        Image.fromarray(img).save(png, format="PNG")
+        body.write(f'--{boundary}\r\nContent-Disposition: form-data; name="image{i}"; '
+                   f'filename="image{i}.png"\r\nContent-Type: image/png\r\n\r\n'.encode())
+        body.write(png.getvalue() + b"\r\n")
+    body.write(f"--{boundary}--\r\n".encode())
+    return body.getvalue(), f"multipart/form-data; boundary={boundary}"
+
+
+class _SseReader:
+    """Reads the first event of an app's /events stream, in a thread."""
+
+    def __init__(self, url: str):
+        import threading
+
+        self.event = None
+        self._thread = threading.Thread(target=self._run, args=(url,), daemon=True)
+        self._thread.start()
+
+    def _run(self, url):
+        import urllib.request
+
+        with urllib.request.urlopen(url, timeout=60) as r:
+            while self.event is None:
+                line = r.readline().decode()
+                if line.startswith("data: "):
+                    self.event = json.loads(line[6:])
+
+    def wait(self, timeout: float):
+        self._thread.join(timeout)
+        return self.event
+
+
+def free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for(cond, timeout: float, poll: float = 0.02) -> bool:
+    t0 = time.perf_counter()
+    while not cond() and time.perf_counter() - t0 < timeout:
+        time.sleep(poll)
+    return cond()
+
+
+def wait_whole(receiver, done, quiet: float = 2.0) -> bool:
+    """Until done() (True), or until the receiver app has had no piece for
+    ``quiet`` seconds (False: the radio drained what the sender left)."""
+    have, t_have = -1, time.perf_counter()
+    while not done():
+        if receiver.pieces_received != have:
+            have, t_have = receiver.pieces_received, time.perf_counter()
+        elif time.perf_counter() - t_have >= quiet:
+            return done()
+        time.sleep(0.02)
+    return True
+
+
+def cuda_event_ms(fn, n: int) -> float:
+    """Median device milliseconds of n calls of fn (CUDA events around
+    each; fn returns to the host, so each call is synchronous)."""
+    import torch
+
+    ms = []
+    for _ in range(n):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return float(np.median(ms))
+
+
+def mode1_images() -> dict:
+    """The Mode-1 users' 240 x 240 crops of kodim23 (MODE1_CROPS)."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(os.path.join(HERE, MODE1_IMAGE)).convert("RGB"))
+    return {u: np.ascontiguousarray(img[y : y + 240, x : x + 240])
+            for u, (y, x) in MODE1_CROPS.items()}
+
+
+def app_phases(dev, card: str, reset, counts, held: dict) -> tuple[dict, dict, object]:
+    """Phases 20-21: both modes' web apps over LoopbackRadio at its
+    defaults, each image posted to the sender page as a browser does.
+    20: SenderApp -> LoopbackRadio -> ReceiverApp with the AppConfig image;
+    21: FeatureMapSenderApp -> LoopbackRadio -> FeatureMapReceiverApp with
+    the packaged codec at 240 x 240, c = 128 on the card. Each run must
+    bring the whole image or latent bit for bit and print no "dropped"
+    line (stdout is captured while the apps run: the radio and the
+    receiver's loop catch exceptions); the first RADIO_HELD calls of each
+    kernel of the first run are held against their plain versions (into
+    ``held``); a batch of the first run is profiled again after the phase,
+    at the radio's defaults. Returns ({phase: launches of its first run},
+    {phase: {kernel: (args, kwargs)}} of the largest call of each kernel in
+    that batch, the codec)."""
+    import functools
+    import io
+
+    from gnuradio_wifi_imagetransfer_tpu_torch import config
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import JSCE
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import apps, bridge, native
+
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    phases, inputs = {}, {}
+
+    def again(label, radio, passes):
+        """The batch that ``passes`` kept, through the radio again at its
+        defaults (the sink a list), profiled; its largest kernel calls go
+        to ``inputs[label]``."""
+        radio.set_encoding(3)
+        radio.set_snr(22.0)
+        radio.set_epsilon(0.0)
+        radio.set_chan_est(0)
+        radio.probes = False
+        radio.sink = _ListSink()
+        with recording(*targets) as calls:
+            prof = device_profile(lambda: passes.fn(*passes.args))
+        print_profile(f"{label}, one batch of {len(passes.args[0])} datagrams ({card})", prof)
+        inputs[label] = {k: max(v, key=input_numel) for k, v in calls.items() if v}
+
+    def stack(label, make_receiver, make_sender):
+        """LoopbackRadio at its defaults between a receiver app and its
+        sender, all started; the sender at APP_SPACING."""
+        rx_port = free_udp_port()
+        radio = bridge.LoopbackRadio(in_port=0, out_port=rx_port, device=dev)
+        check(isinstance(radio.source, native.NativeUdpSource)
+              and isinstance(radio.sink, bridge.NativeExtractSink),
+              f"{label}: not the native source and sink")
+        receiver = make_receiver(rx_port=rx_port, radio=radio)
+        sender = make_sender(cfg=AppConfig(tx_port=radio.in_port, piece_interval_s=APP_SPACING))
+        for part in (radio, receiver, sender):
+            part.start()
+        return radio, receiver, sender
+
+    def lap(label, sender, receiver, body, done):
+        """The form posted to the sender page, one lap of its pieces at a
+        time: a sender that loops at 1 ms outruns the radio (about 300
+        pieces/s), whose native source keeps the newest 4 096 datagrams and
+        drops the oldest, so the sender is stopped after each lap and the
+        form posted again while the receiver, once the radio has drained,
+        is not whole (APP_MAX_LAPS at most). Returns (wall s until whole,
+        laps, launches, held calls)."""
+        reset()
+        with recording(*targets, keep=RADIO_HELD) as calls:
+            t0 = time.perf_counter()
+            for laps in range(1, APP_MAX_LAPS + 1):
+                reply = http(f"http://127.0.0.1:{sender.port}/send_image", *body)
+                check(reply == b"sending", f"{label}: the sender page answered {reply[:200]!r}")
+                check(wait_for(lambda: sender.sender.laps >= 1, APP_TIMEOUT),
+                      f"{label}: the sender took over {APP_TIMEOUT:.0f} s for a lap")
+                sender.stop_sending()
+                if wait_whole(receiver, done):
+                    break
+            wall = time.perf_counter() - t0
+            launches = counts()
+        check(done(), f"{label}: not whole after {laps} laps")
+        check(launches["sync_detect"] > 0 and launches["viterbi_decode_many"] > 0
+              and all(launches[k] == 0 for k in ("sync_stats", "fir_filter",
+                                                 "polyphase_resample")),
+              f"{label}: launches {launches} (need sync_detect and viterbi_decode_many > 0, "
+              f"and no dense K1, K3 or K4)")
+        out = hold_recorded(calls, label)
+        for name, (e, shapes) in out.items():
+            e0, s0 = held.get(name, (0.0, []))
+            held[name] = (max(e0, e), s0 + shapes)
+        return wall, laps, launches, out
+
+    @contextlib.contextmanager
+    def running(label, parts):
+        """stdout captured while the radio and the apps run; they stop, and
+        the capture is printed, however the block ends; then no "dropped"
+        line may be in it."""
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                yield
+        finally:
+            for part in parts:
+                part.stop()
+            print(log.getvalue(), end="")
+        check("dropped" not in log.getvalue(), f"{label}: the radio or the receiver dropped "
+                                               f"a batch or piece:\n{log.getvalue()[-2000:]}")
+
+    # -- 20. Mode-2 apps over LoopbackRadio ----------------------------------
+    label = "mode2-apps"
+    rng = np.random.default_rng(20)
+    AppConfig = config.AppConfig
+    h, w = AppConfig().image_size
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    n = h * w * 3 // 100
+    parts = stack(label, apps.ReceiverApp, apps.SenderApp)
+    radio, receiver, sender = parts
+    with running(label, parts):
+        passes = _Passes(radio, capture=RADIO_PROFILE_PASS)
+        base = f"http://127.0.0.1:{receiver.port}"
+        sse = _SseReader(base + "/events")
+        wall, laps, launches, out = lap(label, sender, receiver, multipart([img]),
+                                        lambda: np.array_equal(receiver.canvas, img))
+        got = receiver.pieces_received
+        wait_whole(receiver, lambda: False)
+        event = sse.wait(10.0)
+        # the RF panel: the probes, then a live retune through POST /radio
+        # with the probes on, and a second run into a cleared canvas
+        panel = (json.loads(http(base + "/constellation")), json.loads(http(base + "/spectrum")))
+        radio.probes = True
+        retune = json.loads(http(base + "/radio?mcs=5&snr=30&epsilon=2e-6&chan_est=3",
+                                 method="POST"))
+        receiver.canvas[:] = 0
+        wall2, laps2, _, _ = lap(f"{label} retune", sender, receiver, multipart([img]),
+                                 lambda: np.array_equal(receiver.canvas, img))
+        wait_whole(receiver, lambda: False)
+        panel2 = (json.loads(http(base + "/constellation")), json.loads(http(base + "/spectrum")))
+    check(event is not None and event.get("image") and event.get("pieces", 0) > 0,
+          f"{label}: no SSE image event ({event})")
+    check(set(panel[0]) == {"points", "snr_db"} and panel[1]["nfft"] == len(panel[1]["psd_db"]),
+          f"{label}: the RF panel's JSON {str(panel)[:300]}")
+    check(retune == {"mcs": 5, "snr": 30.0, "epsilon": 2e-6, "chan_est": 3}
+          and (radio.mcs, radio.snr_db, radio.epsilon, int(radio.chan_est)) == (5, 30.0, 2e-6, 3),
+          f"{label}: POST /radio answered {retune}, radio at {radio.mcs}, {radio.snr_db}, "
+          f"{radio.epsilon}, {radio.chan_est}")
+    check(len(panel2[0]["points"]) > 0 and panel2[0]["snr_db"] is not None
+          and max(panel2[1]["psd_db"]) > -200, f"{label}: the RF panel shows no live probes")
+    print(f"{label}: SenderApp (POST /send_image, {h} x {w} x 3 PNG) -> LoopbackRadio(mcs 3, snr "
+          f"22.0 dB, batch {radio.batch}) -> ReceiverApp: canvas bit for bit after {wall:.2f} s in "
+          f"{laps} lap(s), {n / wall:.0f} pieces/s of the image ({n} pieces; {got} datagrams "
+          f"drawn, {got / wall:.0f}/s), pieces {APP_SPACING * 1e3:g} ms apart; batch times "
+          f"{passes.summary()} (both runs); launches of the first "
+          f"run {json.dumps(launches)}; held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})}; "
+          f"SSE event with {event['pieces']} pieces; RF panel {len(panel[0]['points'])} points "
+          f"(probes off), retune {json.dumps(retune)} -> second run {wall2:.2f} s in {laps2} lap(s), "
+          f"{len(panel2[0]['points'])} points, SNR {panel2[0]['snr_db']} dB, PSD max "
+          f"{max(panel2[1]['psd_db']):.1f} dB ({card})")
+    again(label, radio, passes)
+    phases[label] = launches
+
+    # -- 21. Mode 1 at full width over LoopbackRadio -------------------------
+    # the latent's 1 152 pieces at APP_SPACING (1 ms; the reference's 50 ms
+    # would take 58 s a lap)
+    label = "mode1-loopback"
+    t0 = time.perf_counter()
+    codec = JSCE.packaged(device=dev)
+    t_load = time.perf_counter() - t0
+    check(codec.device.type == "cuda" and (codec.img_size, codec.c) == ((240, 240), 128),
+          f"{label}: packaged codec {codec.img_size}, c = {codec.c} on {codec.device}")
+    t0 = time.perf_counter()
+    codec.warm()
+    t_warm = time.perf_counter() - t0
+    images = mode1_images()
+    latent = codec.img2msg(images)
+    check(latent.shape == (30, 30, 128) and latent.dtype == np.float32
+          and np.isfinite(latent).all(), f"{label}: latent {latent.shape} {latent.dtype}")
+    n = latent.size // 100
+    parts = stack(label, functools.partial(apps.FeatureMapReceiverApp, codec,
+                                           latent_shape=latent.shape),
+                  functools.partial(apps.FeatureMapSenderApp, codec))
+    radio, receiver, sender = parts
+    with running(label, parts):
+        passes = _Passes(radio, capture=RADIO_PROFILE_PASS)
+        decodes = _Passes(codec, capture=0, attr="msg2img")
+        sse = _SseReader(f"http://127.0.0.1:{receiver.port}/events")
+        body = multipart([images[u] for u in apps.FeatureMapSenderApp.TARGET])
+        wall, laps, launches, out = lap(label, sender, receiver, body,
+                                        lambda: np.array_equal(receiver.feature_map, latent))
+        n_dec = len(decodes.seconds)
+        # one more lap keeps the receiver decoding: the third decode that
+        # ends from here started, and published, after the latent was whole
+        http(f"http://127.0.0.1:{sender.port}/send_image", *body)
+        check(wait_for(lambda: len(decodes.seconds) >= n_dec + 3, APP_TIMEOUT),
+              f"{label}: the receiver stopped decoding")
+        last = receiver.last_image_b64
+        sender.stop_sending()
+        wait_whole(receiver, lambda: False)
+        event = sse.wait(10.0)
+    del codec.msg2img
+    check(event is not None and event.get("image"), f"{label}: no SSE image event")
+    want = apps._jpeg_b64(np.asarray(codec.msg2img(latent, receiver.user_id)))
+    check(last == want, f"{label}: the receiver's reconstruction is not msg2img of the sent "
+                        f"latent")
+    dec_ms = np.array(decodes.seconds) * 1e3
+    enc_ms = cuda_event_ms(lambda: codec.img2msg(images), CODEC_TIMED)
+    d_ms = cuda_event_ms(lambda: codec.msg2img(latent, "3-4"), CODEC_TIMED)
+    print(f"{label}: JSCE.packaged() on {codec.device} ({codec.img_size[0]} x "
+          f"{codec.img_size[1]}, c = {codec.c}) loaded in {t_load:.2f} s, warmed in {t_warm:.2f} "
+          f"s; FeatureMapSenderApp (POST /send_image, 2 PNG crops of kodim23) -> LoopbackRadio(mcs "
+          f"3, snr 22.0 dB, batch {radio.batch}) -> FeatureMapReceiverApp: latent {latent.shape} "
+          f"float32 bit for bit after {wall:.2f} s in {laps} lap(s), {n / wall:.0f} pieces/s ({n} pieces "
+          f"{APP_SPACING * 1e3:g} ms apart); batch times {passes.summary()}; receiver decodes "
+          f"{dec_ms.size} ({n_dec / wall:.1f}/s until whole), msg2img in the receive thread "
+          f"median {np.median(dec_ms):.2f} ms (p90 {np.percentile(dec_ms, 90):.2f}); the last "
+          f"reconstruction equals msg2img of the sent latent; launches until whole "
+          f"{json.dumps(launches)}; held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} "
+          f"({card})")
+    print(f"codec on the card, 240 x 240, c = 128, float32 without TF32: img2msg (2 users) "
+          f"{enc_ms:.3f} ms, msg2img {d_ms:.3f} ms (CUDA events, median of {CODEC_TIMED}; "
+          f"{card})")
+    print_profile(f"msg2img ({card})", device_profile(lambda: codec.msg2img(latent, "3-4")))
+    print_profile(f"img2msg, 2 users ({card})", device_profile(lambda: codec.img2msg(images)))
+    again(label, radio, passes)
+    phases[label] = launches
+    return phases, inputs, codec
+
+
+def codec_phase(codec, card: str) -> None:
+    """Phase 22: the packaged codec on the card against its CPU path (the
+    latent within CODEC_LATENT_ATOL, uint8 reconstructions within 1 LSB),
+    then make_weights.py's held-out protocol on the card against the npz
+    meta's PSNR (less PSNR_MARGIN_DB)."""
+    from PIL import Image
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.models import weights
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import JSCE
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.metrics import psnr, ssim
+
+    cpu = JSCE.packaged(device="cpu")
+    images = mode1_images()
+    lat, lat_cpu = codec.img2msg(images), cpu.img2msg(images)
+    err = float(np.abs(lat - lat_cpu).max())
+    check(err <= CODEC_LATENT_ATOL, f"codec: card latent {err:.3g} from the CPU's "
+                                    f"({CODEC_LATENT_ATOL})")
+    lsb = max(int(np.abs(np.asarray(codec.msg2img(lat_cpu, u), int)
+                         - np.asarray(cpu.msg2img(lat_cpu, u), int)).max()) for u in images)
+    check(lsb <= 1, f"codec: card reconstruction {lsb} LSB from the CPU's (1)")
+
+    # make_weights.py eval_holdout and crops(augment=False), on kodim23
+    _, meta = weights.load_soma_npz(weights.default_checkpoint())
+    hold = np.asarray(Image.open(os.path.join(HERE, MODE1_IMAGE)).convert("RGB"))
+    rng = np.random.default_rng(HOLDOUT_SEED)
+
+    def crop():
+        im = [hold][rng.integers(1)]
+        y = rng.integers(im.shape[0] - 240 + 1)
+        x = rng.integers(im.shape[1] - 240 + 1)
+        c = im[y : y + 240, x : x + 240]
+        if rng.integers(2):
+            c = c[:, ::-1]
+        if rng.integers(2):
+            c = c[::-1]
+        return c
+
+    users = meta["users"]
+    scores = {u: ([], []) for u in users}
+    for _ in range(HOLDOUT_CROPS):
+        imgs = {u: crop() for u in users}
+        latent = codec.img2msg(imgs)
+        for u in users:
+            rec = np.asarray(codec.msg2img(latent, u))
+            scores[u][0].append(psnr(rec, imgs[u]))
+            scores[u][1].append(ssim(rec, imgs[u], channel_axis=2))
+    got = {u: (float(np.mean(p)), float(np.mean(s))) for u, (p, s) in scores.items()}
+    want = meta["holdout_metrics"]
+    print(f"codec: card latent within {err:.3g} of the CPU path's ({CODEC_LATENT_ATOL}), "
+          f"reconstructions within {lsb} LSB; held-out {meta['holdout']}, {HOLDOUT_CROPS} crops, "
+          f"seed {HOLDOUT_SEED}: " + "; ".join(
+              f"{u} PSNR {got[u][0]:.3f} dB (npz meta {want[u]['psnr']:.3f}, TPU), SSIM "
+              f"{got[u][1]:.4f} (meta {want[u]['ssim']:.4f})" for u in users) + f" ({card})")
+    for u in users:
+        check(got[u][0] >= want[u]["psnr"] - PSNR_MARGIN_DB,
+              f"codec: {u} held-out PSNR {got[u][0]:.3f} dB below the meta's "
+              f"{want[u]['psnr']:.3f} - {PSNR_MARGIN_DB}")
 
 
 def main() -> None:
@@ -1674,7 +2108,12 @@ def main() -> None:
 
     # -- 18-19. the radios ----------------------------------------------
     radio_launches, radio_inputs = radio_phases(dev, card, reset, counts, held)
-    for label, calls in radio_inputs.items():
+
+    # -- 20-22. both modes' apps over LoopbackRadio, the codec ---------------
+    app_launches, app_inputs, codec = app_phases(dev, card, reset, counts, held)
+    codec_phase(codec, card)
+
+    for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
         det_ms = cuda_ms(lambda: k1.sync_detect(*det_args, **det_kw), 20)
@@ -1720,7 +2159,8 @@ def main() -> None:
                     "replaces": f"{jax_ops}/{replaces}", "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
                     "bound_by": by, "library_ms": lib,
-                    "radio_launches": {k: v[name] for k, v in radio_launches.items()}})
+                    "radio_launches": {k: v[name] for k, v in radio_launches.items()},
+                    "app_launches": {k: v[name] for k, v in app_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

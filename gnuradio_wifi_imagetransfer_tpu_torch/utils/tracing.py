@@ -185,9 +185,10 @@ class ConstellationProbe:
         with self._lock:
             stored = min(self._n, self.capacity)
             pos = self._n % self.capacity
-            ring = np.concatenate([self._buf[pos:], self._buf[:pos]])[-stored:]
+            # from the end by explicit starts: [-0:] would be the whole ring
+            ring = np.concatenate([self._buf[pos:], self._buf[:pos]])[self.capacity - stored:]
         if n is not None:
-            ring = ring[-n:]
+            ring = ring[max(ring.size - n, 0):]
         return np.stack([ring.real, ring.imag], axis=-1).astype(np.float32)
 
 

@@ -46,7 +46,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         assert not bad, bad
         new = {port.__name__ + "." + m for m in (
             "channel", "channel.model", "phy.mac", "parallel.adaptive", "parallel.executor",
-            "runtime.bridge", "runtime.native", "utils.image", "utils.tracing")}
+            "runtime.bridge", "runtime.native", "utils.image", "utils.tracing",
+            "models.layers", "models.rcb", "models.afb", "models.encoder", "models.decoder",
+            "models.weights", "models.jsce", "utils.metrics", "runtime.apps",
+            "runtime.socket_demo", "runtime.misc_demos")}
         assert new <= set(sys.modules), new - set(sys.modules)
         print("OK", len([n for n in sys.modules if n.startswith(port.__name__)]))
     """)

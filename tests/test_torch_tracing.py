@@ -68,6 +68,18 @@ def test_constellation_probe_matches_jax():
     np.testing.assert_allclose(pts[:, 0], np.arange(12, 20))
 
 
+def test_constellation_probe_is_empty_before_a_push():
+    """An empty probe holds no points. The JAX package's returns the whole
+    zeroed ring there (``[-0:]`` in its ``points``), so an RF panel with the
+    probes off shows 512 points at the origin; the port does not."""
+    p = tracing.ConstellationProbe(capacity=8)
+    assert p.points().shape == (0, 2) and p.points(512).shape == (0, 2)
+    assert jtracing.ConstellationProbe(capacity=8).points().shape == (8, 2)
+    p.push(np.array([1 + 2j, 3 + 4j]))
+    np.testing.assert_array_equal(p.points(512), [[1, 2], [3, 4]])
+    assert p.points(0).shape == (0, 2)
+
+
 def test_spectrum_probe_matches_jax():
     p, jp = tracing.SpectrumProbe(nfft=256, alpha=0.5), jtracing.SpectrumProbe(nfft=256, alpha=0.5)
     assert np.array_equal(p.psd_db(), jp.psd_db())
