@@ -140,9 +140,34 @@ holds each hand-written kernel against its plain PyTorch version:
      held-out protocol (16 kodim23 crops, seed 123) on the card: PSNR
      and SSIM per user beside the npz meta's, PSNR no lower than the
      meta's less 0.5 dB (the meta was measured on a TPU);
+ 23. SV fading through the kernels (tests/test_channel.py:63-81 on the
+     card): 2 frames of 100 bytes at MCS 7, six realisations of
+     ``channel.sv.sv_impulse_response`` (6 taps, ray decay 1.5) from a
+     CUDA generator, 30 dB, frequency offset 2e-3, the port's
+     ``sync.receive`` on the card; at least 8 of 12 frames bit-exact, one
+     ``sync_detect`` and one ``viterbi_decode_many`` a receive, every call
+     held against its plain version;
+ 24. the IRS physics at full width: ``SOMANet.forward_physics`` (240 x 240,
+     c = 128, 16 IRS elements, 2 users of 2 kodim23 crops) from the
+     packaged npz on the card, channels from ``ClusteredIRSChannel`` (the
+     trainer's ``Environment``) on a CUDA generator, AWGN passed in; the
+     card's output within 2e-3 of the port's CPU path on the same inputs;
+ 25. training at the reference geometry: ``make_weights_torch.py
+     --geometry ref --init-from-asset --steps 16`` in this process with
+     ``--out`` a temporary directory (2 calls of ``train_steps``, K = 8,
+     m2m, 2 users of 8 images of 240 x 240, c = 128, at the schedule's
+     floor): every loss finite, ms a step (CUDA events, median of the
+     second call's steps), peak memory, a profiled step's idle share; the
+     written npz's held-out PSNR and SSIM by eval_holdout's protocol, no
+     lower than the packaged npz meta's less 0.5 dB, and the npz through
+     ``JSCE(weight_path=...)`` on the card; then one m2m step at the small
+     geometry (80 x 80, c = 64, 2 images a user) on the card against the
+     same step on the CPU: loss, every gradient and parameter, the batch
+     statistics (tolerances at SMALL_*);
      then one JSON line of kernel timings, bounds and launch counts (each
      kernel's ``radio_launches`` are those of phases 18 and 19, its
-     ``app_launches`` those of 20 and 21).
+     ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's and
+     ``train_launches`` phase 25's).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -150,9 +175,11 @@ JSON line; two checkouts are compared by running it in turns (A, B, B,
 A). It builds the kernels into that checkout's own build directory.
 
 Launch counts are set to 0 just before each main-path run (7 to 13, each
-radio run of 18-19 and the first run of each app phase, 20-21) and read
-just after; launches made to compare or
-time a kernel do not count.
+radio run of 18-19, the first run of each app phase, 20-21, the SV fading
+receives of 23 and the training script of 25) and read just after;
+launches made to compare or time a kernel do not count. The training path
+runs none of the four kernels (its convolutions are cuDNN's, its products
+cuBLAS's), so its counts must stay 0.
 A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
@@ -223,6 +250,31 @@ CODEC_LATENT_ATOL = 1e-4             # the card's latent against the CPU path's
 # short of it by PSNR_MARGIN_DB
 HOLDOUT_CROPS, HOLDOUT_SEED = 16, 123
 PSNR_MARGIN_DB = 0.5
+
+# the SV fading run (phase 23), tests/test_channel.py:63-81 on the card: 2
+# frames of 100 bytes at MCS 7, six SV realisations (6 taps, ray decay
+# 1.5), 30 dB, frequency offset 2e-3; at least 8 of the 12 frames
+SV_MCS, SV_LEN, SV_FRAMES, SV_TRIALS, SV_MIN_DECODED = 7, 100, 2, 6, 8
+SV_SNR_DB, SV_FO, SV_SEED = 30.0, 2e-3, 23
+# the IRS physics run (phase 24): SOMANet.forward_physics at the reference
+# geometry, 2 users of IRS_BATCH kodim23 crops, 16 IRS elements, 20 dB,
+# the card's output against the CPU path's (ImageNet-normalised units, in
+# which the reconstructions span about 4.6)
+IRS_BATCH, IRS_N, IRS_SNR_DB, IRS_SEED = 2, 16, 20.0, 24
+IRS_GEOMETRY = (240, 128, "jsce_soma_dscn_240.npz")      # image side, c, checkpoint
+PHYSICS_ATOL = 2e-3
+# the training run (phase 25): make_weights_torch.py in this process, then
+# one m2m step at the small geometry (80 x 80, c = 64, 2 images a user) on
+# the card against the same step on the CPU. Tolerances: the loss within
+# 1e-4 relative; each gradient leaf within 1e-3 of its largest value
+# (1e-7 absolute at least: a conv bias before BatchNorm has a gradient of
+# rounding noise); parameters within 2 lr + 1e-6 (Adam's first step sends a
+# leaf by about lr whatever its gradient's size, so a noise gradient of
+# the other sign lands 2 lr away); batch statistics within 1e-5
+TRAIN_ARGS = ["--geometry", "ref", "--init-from-asset", "--steps", "16"]
+TRAIN_K = 8                          # make_weights_torch.py's steps a train_steps call at ref
+SMALL_LR, SMALL_BATCH, SMALL_SEED = 1e-3, 2, 25
+SMALL_LOSS_RTOL, SMALL_GRAD_RTOL, SMALL_GRAD_ATOL, SMALL_STATS_ATOL = 1e-4, 1e-3, 1e-7, 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -1548,6 +1600,241 @@ def codec_phase(codec, card: str) -> None:
               f"{want[u]['psnr']:.3f} - {PSNR_MARGIN_DB}")
 
 
+def sv_phase(dev, card: str, reset, counts, held: dict) -> dict:
+    """Phase 23: tests/test_channel.py:63-81 on the card. SV tapped-delay
+    fading from a CUDA generator (``channel.sv.sv_impulse_response``) over
+    the port's TX bursts, the channel model, then ``sync.receive`` on the
+    card for each of SV_TRIALS realisations; at least SV_MIN_DECODED of the
+    frames bit-exact; each receive launches the fused detector (K1) and the
+    segmented Viterbi kernel (K2) once, and every call is held against its
+    plain version (``recording`` / ``hold_recorded``). Returns the
+    launches."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.channel import sv
+    from gnuradio_wifi_imagetransfer_tpu_torch.channel.model import channel_model
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import sync, tx
+
+    frames = np.random.default_rng(7).integers(0, 256, (SV_FRAMES, SV_LEN), dtype=np.uint8)
+    stream = tx.pad_burst(tx.transmit(frames, SV_MCS, device=dev), pad_front=150,
+                          pad_tail=300).reshape(-1)
+    plan = tx.tx_plan(SV_MCS, SV_LEN)
+    gen = torch.Generator(device=dev).manual_seed(SV_SEED)
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    decoded, taps = [], []
+    reset()
+    with recording(*targets) as calls:
+        t0 = time.perf_counter()
+        for _ in range(SV_TRIALS):
+            h = sv.sv_impulse_response(gen, n_taps=6, ray_decay=1.5)
+            y = channel_model(gen, stream, noise_voltage=0.5 * 10 ** (-SV_SNR_DB / 20),
+                              frequency_offset=SV_FO, taps=h)
+            res, cand = sync.receive(y, plan, max_frames=4, device=dev)
+            ok = (cand.valid & res.sig["parity_ok"]).cpu().numpy()
+            got = {tuple(r) for r in res.psdu.cpu().numpy()[ok]}
+            decoded.append(sum(tuple(f) in got for f in frames))
+            taps.append(h)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    check(sum(decoded) >= SV_MIN_DECODED,
+          f"sv fading: {sum(decoded)}/{SV_FRAMES * SV_TRIALS} frames decoded "
+          f"({SV_MIN_DECODED} needed), per realisation {decoded}")
+    check(launches["sync_detect"] == SV_TRIALS and launches["viterbi_decode_many"] == SV_TRIALS
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("sync_detect", "viterbi_decode_many")),
+          f"sv fading: launches {launches} for {SV_TRIALS} receives")
+    out = hold_recorded(calls, "sv fading")
+    for name, (e, shapes) in out.items():
+        e0, s0 = held.get(name, (0.0, []))
+        held[name] = (max(e0, e), s0 + shapes)
+    power = [np.round((h.abs() ** 2).cpu().numpy(), 3).tolist() for h in taps]
+    print(f"sv fading (MCS {SV_MCS}, {SV_LEN} bytes, {SV_TRIALS} realisations of 6 taps, "
+          f"{SV_SNR_DB:g} dB, offset {SV_FO:g}): {sum(decoded)}/{SV_FRAMES * SV_TRIALS} frames "
+          f"bit-exact (per realisation {decoded}) in {wall:.2f} s; tap powers {power}; launches "
+          f"{json.dumps(launches)}; held "
+          f"{json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} ({card})")
+    return launches
+
+
+def irs_phase(dev, card: str) -> None:
+    """Phase 24: ``SOMANet.forward_physics`` at the reference geometry
+    (IRS_GEOMETRY: 240 x 240, c = 128; IRS_N elements, 2 users of IRS_BATCH
+    kodim23 crops) from the packaged 240 npz on the card, its channels drawn by the
+    trainer's ``Environment`` (``ClusteredIRSChannel``) from a CUDA
+    generator and its AWGN passed in as draws; the card's output against
+    the port's CPU path on the same inputs within PHYSICS_ATOL."""
+    import torch
+    from PIL import Image
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.models import weights
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import TARGET, normalize_image
+    from gnuradio_wifi_imagetransfer_tpu_torch.channel.sv import complex_normal
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.somanet import SOMANet, pe_labels
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.trainer import Environment
+
+    gen = torch.Generator(device=dev).manual_seed(IRS_SEED)
+    env = Environment(user_num=2, irs_scale=int(IRS_N ** 0.5), device=dev)
+    (_, up, _), _ = env.reset(gen)
+    (_, down, _), _ = env.reset(gen)                     # a second Rician refresh
+    envs_tx, envs_rx = up.T[..., None].contiguous(), down.T[..., None].contiguous()
+    side, c, npz = IRS_GEOMETRY
+    variables, _ = weights.load_soma_npz(weights.ASSETS / npz)
+    hold = np.asarray(Image.open(os.path.join(HERE, MODE1_IMAGE)).convert("RGB"))
+    rng = np.random.default_rng(IRS_SEED)
+    crops = np.stack([[hold[y: y + side, x: x + side] for y, x in zip(
+        rng.integers(0, hold.shape[0] - side, IRS_BATCH),
+        rng.integers(0, hold.shape[1] - side, IRS_BATCH))] for _ in TARGET])
+    images = torch.from_numpy(np.ascontiguousarray(np.moveaxis(normalize_image(crops), -1, -3)))
+    labels = torch.from_numpy(pe_labels(list(TARGET)))
+    noise = complex_normal(gen, (len(TARGET), IRS_BATCH, (side // 8) ** 2 * c // 2), dev)
+    outs = []
+    with torch.no_grad():
+        for d in (dev, torch.device("cpu")):
+            model = SOMANet(c, side, IRS_N, device=d)
+            model.load_state_dict(weights.state_dict_from_flax(variables, model))
+            args = [t.to(d) for t in (images, labels, envs_tx, envs_rx, noise)]
+            outs.append(model.forward_physics(*args, IRS_SNR_DB).cpu())
+            if not outs[1:]:
+                ms = cuda_event_ms(lambda: model.forward_physics(*args, IRS_SNR_DB), 3)
+    got, ref = outs
+    err = float((got - ref).abs().max())
+    csi = [complex(model.get_chnl(envs_tx[u].cpu(), envs_rx[u].cpu())[0, 0].detach())
+           for u in range(2)]
+    check(got.shape == (2, IRS_BATCH, 3, side, side) and bool(torch.isfinite(got).all()),
+          f"irs physics: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+    check(err <= PHYSICS_ATOL, f"irs physics: card output {err:.3g} from the CPU path's "
+                               f"({PHYSICS_ATOL})")
+    print(f"irs physics (SOMANet.forward_physics, {side} x {side}, c = {c}, {IRS_N} IRS "
+          f"elements, 2 users x {IRS_BATCH}, {IRS_SNR_DB:g} dB, channels from "
+          f"ClusteredIRSChannel on a CUDA generator, CSI {[f'{c:.3f}' for c in csi]}): card within {err:.3g} of the CPU path "
+          f"({PHYSICS_ATOL}; output peak {float(ref.abs().max()):.3f}); {ms:.2f} ms a forward "
+          f"(CUDA events, median of 3; {card})")
+
+
+def training_phase(dev, card: str, reset, counts) -> dict:
+    """Phase 25: make_weights_torch.py in this process (TRAIN_ARGS, --out a
+    temporary directory): 2 calls of train_steps, K = 8, m2m, 2 users of 8
+    images at 240 x 240, c = 128, warm-started from the packaged npz, at
+    the schedule's floor. Every loss finite; ms a step (CUDA events around
+    each step, median of the second call's), peak memory, a profiled step;
+    the held-out PSNR / SSIM of the written npz by eval_holdout's protocol,
+    no lower than the packaged npz meta's less PSNR_MARGIN_DB; the npz
+    through JSCE on the card. Then one m2m step at the small geometry on
+    the card against the same step on the CPU (loss, gradients,
+    parameters, batch statistics). Returns the kernels' launches of the
+    training run (none of the four lies on it)."""
+    import tempfile
+
+    import torch
+
+    import make_weights_torch as mwt
+    from gnuradio_wifi_imagetransfer_tpu_torch.models import weights
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import JSCE
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.somanet import SOMANet, pe_labels
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.trainer import Trainer
+
+    events = []
+    step_fn = Trainer._step
+
+    def timed_step(self, *args):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step_fn(self, *args)
+        stop.record()
+        events.append((start, stop))
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        Trainer._step = timed_step
+        try:
+            reset()
+            t0 = time.perf_counter()
+            res = mwt.main(TRAIN_ARGS + ["--out", out])
+            wall = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            Trainer._step = step_fn
+        peak = torch.cuda.max_memory_allocated()
+        losses, trainer = res["losses"], res["trainer"]
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        check(len(losses) == 2 * TRAIN_K and bool(np.isfinite(losses).all()),
+              f"training: losses {losses}")
+        check(all(v == 0 for v in launches.values()),
+              f"training: the kernels of the RX path launched {launches}")
+        rng = np.random.default_rng(SMALL_SEED)
+        pool = mwt.load_kodak(mwt.TRAIN_IMAGES)
+        one = np.stack([mwt.crops(rng, pool, mwt.B) for _ in range(mwt.U)])[None]
+        labs = pe_labels(mwt.TARGET_USERS)[None]
+        prof = device_profile(lambda: trainer.train_steps(one, labs, "m2m"))
+        variables, meta = weights.load_soma_npz(res["npz"])
+        table = mwt.eval_holdout(variables, device=dev)
+        _, asset_meta = weights.load_soma_npz(mwt.ASSET)
+        want = asset_meta["holdout_metrics"]
+        codec = JSCE(weight_path=res["npz"], img_size=(mwt.IMG, mwt.IMG),
+                     compressed_channel=mwt.C, device=dev)
+        latent = codec.img2msg({u: mwt.crops(rng, pool, 1)[0] for u in mwt.TARGET_USERS})
+        rec = np.asarray(codec.msg2img(latent, mwt.TARGET_USERS[0]))
+    check(latent.shape == (mwt.IMG // 8, mwt.IMG // 8, mwt.C) and np.isfinite(latent).all()
+          and rec.shape == (mwt.IMG, mwt.IMG, 3) and rec.dtype == np.uint8,
+          f"training: the written npz through JSCE gave {latent.shape}, {rec.shape} {rec.dtype}")
+    for u in want:
+        check(table[u]["psnr"] >= want[u]["psnr"] - PSNR_MARGIN_DB,
+              f"training: {u} held-out PSNR {table[u]['psnr']:.3f} dB below the packaged npz "
+              f"meta's {want[u]['psnr']:.3f} - {PSNR_MARGIN_DB}")
+    second = step_ms[TRAIN_K:2 * TRAIN_K]
+    print(f"training (make_weights_torch.py {' '.join(TRAIN_ARGS)}): {len(losses)} steps from "
+          f"step {meta['steps'] - len(losses)}, losses {np.round(losses, 5).tolist()}; "
+          f"{np.median(second):.2f} ms a step (CUDA events, median of the second call's "
+          f"{len(second)}; all {np.round(step_ms, 2).tolist()}), {wall:.1f} s wall for the "
+          f"script (load, 2 calls, holdout, packaging); peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(launches)} ({card})")
+    print_profile(f"one m2m training step, 2 x {mwt.B} x {mwt.IMG} x {mwt.IMG} ({card})", prof)
+    print(f"training: the written npz's held-out {mwt.HOLDOUT} ({HOLDOUT_CROPS} crops, seed "
+          f"{HOLDOUT_SEED}): " + "; ".join(
+              f"{u} PSNR {table[u]['psnr']:.3f} dB (packaged npz meta {want[u]['psnr']:.3f}, "
+              f"TPU), SSIM {table[u]['ssim']:.4f} (meta {want[u]['ssim']:.4f})" for u in want)
+          + f"; through JSCE(weight_path=...) on the card: latent {latent.shape}, "
+          f"reconstruction {rec.shape} ({card})")
+
+    # one m2m step at the small geometry, the card against the CPU
+    small, _ = weights.load_soma_npz(weights.ASSETS / "jsce_soma_dscn.npz")
+    imgs = np.stack([mwt.crops(rng, pool, SMALL_BATCH, size=80) for _ in range(mwt.U)])
+    steps = []
+    for d in (dev, torch.device("cpu")):
+        model = SOMANet(64, 80, device=d)
+        model.load_state_dict(weights.state_dict_from_flax(small, model))
+        tr = Trainer(model, learning_rate=SMALL_LR, device=d)
+        loss = tr.train_step(imgs, pe_labels(mwt.TARGET_USERS), "m2m")
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        steps.append((loss, grads, weights._flatten(weights.flax_from_module(model))))
+    (l_c, g_c, v_c), (l_h, g_h, v_h) = steps
+    loss_rel = abs(l_c - l_h) / abs(l_h)
+    grad_err = {n: float((g_c[n] - g_h[n]).abs().max()) for n in g_h}
+    grad_bad = [n for n in g_h if grad_err[n] > max(
+        SMALL_GRAD_RTOL * float(g_h[n].abs().max()), SMALL_GRAD_ATOL)]
+    param_err = max(float(np.abs(v_c[k] - v_h[k]).max()) for k in v_h if k.startswith("params"))
+    stats_err = max(float(np.abs(v_c[k] - v_h[k]).max()) for k in v_h
+                    if k.startswith("batch_stats"))
+    moved = sum(int((np.abs(v_c[k] - v_h[k]) > 1e-6).sum()) for k in v_h if k.startswith("params"))
+    worst = max(grad_err, key=lambda n: grad_err[n] / max(float(g_h[n].abs().max()), 1e-30))
+    print(f"training, one m2m step at 80 x 80, c = 64, 2 x {SMALL_BATCH} (jsce_soma_dscn.npz, lr "
+          f"{SMALL_LR:g}): loss {l_c:.7f} on the card, {l_h:.7f} on the CPU ({loss_rel:.2e} "
+          f"relative); gradients: {len(grad_bad)} of {len(g_h)} leaves out of tolerance, the "
+          f"worst relative {worst} ({grad_err[worst]:.3g} of {float(g_h[worst].abs().max()):.3g});"
+          f" parameters within {param_err:.3g} ({param_err / SMALL_LR:.3f} lr; {moved} elements "
+          f"past 1e-6), batch statistics within {stats_err:.3g} ({card})")
+    check(loss_rel <= SMALL_LOSS_RTOL, f"training: card loss {l_c} against the CPU's {l_h}")
+    check(not grad_bad, f"training: gradients out of tolerance on {grad_bad[:5]}")
+    check(param_err <= 2 * SMALL_LR + 1e-6 and stats_err <= SMALL_STATS_ATOL,
+          f"training: parameters {param_err:.3g} or statistics {stats_err:.3g} off the CPU's")
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -2112,6 +2399,12 @@ def main() -> None:
     # -- 20-22. both modes' apps over LoopbackRadio, the codec ---------------
     app_launches, app_inputs, codec = app_phases(dev, card, reset, counts, held)
     codec_phase(codec, card)
+    del codec
+
+    # -- 23-25. SV fading through K1 and K2, IRS physics, training ----------
+    sv_launches = sv_phase(dev, card, reset, counts, held)
+    irs_phase(dev, card)
+    train_launches = training_phase(dev, card, reset, counts)
 
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
@@ -2160,7 +2453,8 @@ def main() -> None:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
                     "bound_by": by, "library_ms": lib,
                     "radio_launches": {k: v[name] for k, v in radio_launches.items()},
-                    "app_launches": {k: v[name] for k, v in app_launches.items()}})
+                    "app_launches": {k: v[name] for k, v in app_launches.items()},
+                    "sv_launches": sv_launches[name], "train_launches": train_launches[name]})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

@@ -99,8 +99,9 @@ class JSCE:
         device="cuda",
     ):
         """``params``: (encoder, decoder) Flax variables trees (numpy or any
-        array numpy reads), carried into the modules; else the npz at
-        ``weight_path``; else a random init from ``torch.Generator`` seeded
+        array numpy reads), carried into the modules; else the checkpoint at
+        ``weight_path`` (an npz of make_weights.py, or the reference's .pth
+        through ``convert``); else a random init from ``torch.Generator`` seeded
         with ``rng_seed`` (it cannot give the JAX package's numbers)."""
         if codec != "SOMA-DSCN":
             raise NotImplementedError(
@@ -115,15 +116,19 @@ class JSCE:
         # PE table (256, 2*bound, 2*bound), indexed [channel, w, h]
         self.pe = positionalencoding2d(256, 2 * csi_bound, 2 * csi_bound)
 
-        if params is None and weight_path is not None:
-            if not str(weight_path).endswith(".npz"):
-                raise ValueError(f"the port reads npz checkpoints only, got {weight_path}")
+        if params is None and weight_path is not None and str(weight_path).endswith(".npz"):
+            # the native checkpoint that make_weights.py trains
             variables, meta = wt.load_soma_npz(weight_path)
             if meta.get("compressed_channel", compressed_channel) != compressed_channel:
                 raise ValueError(f"checkpoint has compressed_channel="
                                  f"{meta['compressed_channel']}, facade asked for "
                                  f"{compressed_channel}")
             params = wt.split_soma(variables)
+        elif params is None and weight_path is not None:
+            # a reference-format .pth (jsce_codec.py:89-96)
+            from gnuradio_wifi_imagetransfer_tpu_torch.models import convert
+
+            params = convert.load_torch_checkpoint(weight_path)
         if params is not None:
             for m, variables in zip((self.encoder, self.decoder), params):
                 m.load_state_dict(wt.state_dict_from_flax(variables, m))

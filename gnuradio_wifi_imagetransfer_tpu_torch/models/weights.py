@@ -1,5 +1,5 @@
-"""The codec's weights: the flat npz store and the carrier from a Flax
-variables tree to the port's modules.
+"""The codec's weights: the flat npz store and the carriers between a Flax
+variables tree and the port's modules, both ways.
 
 The trained SOMA-DSCN weights ship as one compressed npz of float16
 leaves keyed 'collection/path/to/leaf' (the JAX package's
@@ -18,6 +18,12 @@ layouts change as follows:
   BatchNorm scale/bias, batch_stats mean/var       -> weight/bias, running_mean/running_var
   PReLU alpha                                      -> weight
   GDN beta/gamma                                   -> the same (reparameterised sqrt form)
+  SOMANet shared_phi                               -> the same
+
+``flax_from_module`` is the reverse carrier: a module's state -> the
+Flax-shaped variables tree the JAX package's SOMANet holds, so
+``save_soma_npz`` writes the npz that the JAX package's ``load_soma_npz``
+reads leaf for leaf.
 
 Both 4-d kernels take the transpose (3, 2, 0, 1): the JAX package keeps
 its transposed-conv kernel as (kh, kw, O, I) for
@@ -45,7 +51,7 @@ CHECKPOINTS = ("jsce_soma_dscn_240.npz", "jsce_soma_dscn.npz")
 _LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
          ("params", "alpha"): "weight", ("params", "beta"): "beta",
          ("params", "gamma"): "gamma", ("batch_stats", "mean"): "running_mean",
-         ("batch_stats", "var"): "running_var"}
+         ("batch_stats", "var"): "running_var", ("params", "shared_phi"): "shared_phi"}
 
 
 def _flatten(tree, prefix=""):
@@ -80,6 +86,17 @@ def load_soma_npz(path) -> tuple[dict, dict]:
     flat = {k: v.astype(np.float32) if np.issubdtype(v.dtype, np.floating) else v
             for k, v in data.items()}
     return _unflatten(flat), meta
+
+
+def save_soma_npz(variables: dict, path, meta: Optional[dict] = None,
+                  dtype=np.float16) -> None:
+    """SOMANet variables -> one compressed npz of ``dtype`` leaves (float16
+    by default) keyed 'collection/path/to/leaf', with the JSON ``meta``
+    under '__meta__': the JAX package's format."""
+    flat = {k: v.astype(dtype) if np.issubdtype(v.dtype, np.floating) else v
+            for k, v in _flatten(variables).items()}
+    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **flat)
 
 
 def split_soma(variables: dict) -> tuple[dict, dict]:
@@ -148,3 +165,34 @@ def state_dict_from_flax(variables: collections.abc.Mapping,
         raise KeyError(f"{type(module).__name__} tensors with no leaf: {missing[:8]}")
     return out
 
+
+
+def _to_flax(module: nn.Module, name: str, t: torch.Tensor) -> tuple[str, str, np.ndarray]:
+    """(collection, leaf, value) of one tensor of ``module``."""
+    v = t.detach().cpu().numpy()
+    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and name == "weight":
+        return "params", "kernel", v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+    if isinstance(module, nn.BatchNorm2d):
+        return {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")}[name] + (v,)
+    if isinstance(module, nn.PReLU):
+        return "params", "alpha", v
+    return "params", name, v
+
+
+def flax_from_module(module: nn.Module) -> dict:
+    """A module's parameters and BatchNorm statistics -> the Flax variables
+    tree {"params": ..., "batch_stats": ...} of float32 numpy arrays (the
+    reverse of ``state_dict_from_flax``; BatchNorm's step counter, which
+    Flax does not keep, is dropped)."""
+    flat = {}
+    for prefix, m in module.named_modules():
+        tensors = list(m.named_parameters(recurse=False)) + [
+            (n, b) for n, b in m.named_buffers(recurse=False)
+            if n in ("running_mean", "running_var")]
+        for name, t in tensors:
+            collection, leaf, v = _to_flax(m, name, t)
+            path = [collection] + (prefix.split(".") if prefix else []) + [leaf]
+            flat[SEP.join(path)] = np.array(v, dtype=np.float32)     # a copy
+    return _unflatten(flat)

@@ -1,1 +1,2 @@
-"""Device, wire-format and tracing helpers (PyTorch port)."""
+"""Device, wire-format, tracing, image, metrics and training helpers
+(PyTorch port)."""

@@ -190,8 +190,9 @@ def test_facade_checks_its_inputs():
         codec.img2msg({"3-4": np.zeros((8, 8, 3), np.uint8)})
     with pytest.raises(NotImplementedError):
         jsce.JSCE(codec="SOMA-GDN", device="cpu")
-    with pytest.raises(ValueError, match="npz"):
-        jsce.JSCE(weight_path="weights.pth", device="cpu")
+    # a .pth goes through models/convert.py, which reads the file
+    with pytest.raises(FileNotFoundError):
+        jsce.JSCE(weight_path="missing-weights.pth", device="cpu")
     with pytest.raises(ValueError, match="compressed_channel"):
         jsce.JSCE(weight_path=wt.default_checkpoint(), compressed_channel=64, device="cpu")
     from PIL import Image
