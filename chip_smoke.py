@@ -164,10 +164,27 @@ holds each hand-written kernel against its plain PyTorch version:
      geometry (80 x 80, c = 64, 2 images a user) on the card against the
      same step on the CPU: loss, every gradient and parameter, the batch
      statistics (tolerances at SMALL_*);
+ 26. the DQN IRS controller: tests/test_control.py's bandit (600 steps,
+     ``DqnAgent(device="cuda")`` over ``IrsPowerEnv`` on the card), each
+     greedy action after the warm-up pushed through ``IrsControlClient`` to
+     a local ``IrsControlServer``: the greedy power within 1 dB of the
+     best, every push arrived in order; the first 150 steps on the card and
+     on the CPU from one set of initial parameters: equal actions, losses
+     within 1e-5 relative; steps/s and the update's ms (CUDA events) at the
+     bandit's and at the default configuration;
+ 27. the model zoo: ``mae_vit_base_patch16`` at full width (8 kodim23
+     crops of 224 x 224, mask 0.75, noise from a CUDA generator, seeded
+     weights): loss, forward ms (CUDA events, median of 20), peak memory, a
+     profiled forward; at batch 2 the card's mask and ids equal to the CPU
+     path's, loss and pred within tolerance; then ViT(), a Swin-T stage-1
+     block and PatchMerging, ConditionalVAE(), ViTEncoder / ViTDecoder,
+     GNN, PropagNet and CSAAFB each on the card against its CPU path
+     (ZOO_RTOL);
      then one JSON line of kernel timings, bounds and launch counts (each
      kernel's ``radio_launches`` are those of phases 18 and 19, its
-     ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's and
-     ``train_launches`` phase 25's).
+     ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
+     ``train_launches`` phase 25's, ``dqn_launches`` phase 26's and
+     ``zoo_launches`` phase 27's).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -176,10 +193,11 @@ A). It builds the kernels into that checkout's own build directory.
 
 Launch counts are set to 0 just before each main-path run (7 to 13, each
 radio run of 18-19, the first run of each app phase, 20-21, the SV fading
-receives of 23 and the training script of 25) and read just after;
-launches made to compare or time a kernel do not count. The training path
-runs none of the four kernels (its convolutions are cuDNN's, its products
-cuBLAS's), so its counts must stay 0.
+receives of 23, the training script of 25, the controller's run of 26
+and the zoo's runs of 27) and read just after; launches made to compare or
+time a kernel do not count. The training path, the controller and the zoo
+run none of the four kernels (their convolutions are cuDNN's, their
+products cuBLAS's), so their counts must stay 0.
 A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
@@ -275,6 +293,28 @@ TRAIN_ARGS = ["--geometry", "ref", "--init-from-asset", "--steps", "16"]
 TRAIN_K = 8                          # make_weights_torch.py's steps a train_steps call at ref
 SMALL_LR, SMALL_BATCH, SMALL_SEED = 1e-3, 2, 25
 SMALL_LOSS_RTOL, SMALL_GRAD_RTOL, SMALL_GRAD_ATOL, SMALL_STATS_ATOL = 1e-4, 1e-3, 1e-7, 1e-5
+
+# the DQN controller (phase 26): tests/test_control.py:34-52's bandit on the
+# card (IrsPowerEnv(n_grid=3, obs_dim=4), 9 actions, DQN_STEPS steps), each
+# greedy action after the warm-up pushed to a local IrsControlServer; then
+# the first DQN_PARITY_STEPS steps again on the card and on the CPU from one
+# carried set of initial parameters and one environment: equal actions,
+# losses within DQN_LOSS_RTOL; the update timed (CUDA events) at the bandit's
+# batch and at the default DqnConfig on IrsPowerEnv() (16 actions, batch 64)
+DQN_CFG = dict(obs_dim=4, batch_size=32, buffer_size=2000, eps_decay_steps=300, gamma=0.0,
+               learning_rate=3e-3, target_update=25)
+DQN_STEPS, DQN_PARITY_STEPS, DQN_SEED, DQN_TIMED = 600, 150, 1, 50
+DQN_LOSS_RTOL = 1e-5
+# the model zoo (phase 27): mae_vit_base_patch16 at full width (224 x 224,
+# MAE_BATCH kodim23 crops, mask 0.75, noise from a CUDA generator) from
+# seeded weights, timed (CUDA events, median of MAE_TIMED) and profiled;
+# then at MAE_CHECK_BATCH, and each other zoo model, the card against the
+# port's CPU path on the same weights and inputs: masks and ids exactly,
+# outputs within ZOO_RTOL of their peak (ZOO_RTOL_DEEP for the ViT codec's
+# 24 talking-heads layers, whose float32 runs lie 1-2e-4 of the peak from a
+# float64 run on the CPU), the MAE loss within MAE_LOSS_RTOL
+MAE_BATCH, MAE_CHECK_BATCH, MAE_TIMED, ZOO_SEED = 8, 2, 20, 27
+ZOO_RTOL, ZOO_RTOL_DEEP, MAE_LOSS_RTOL = 1e-4, 5e-4, 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -1835,6 +1875,287 @@ def training_phase(dev, card: str, reset, counts) -> dict:
     return launches
 
 
+def _bandit(agent, env, steps: int, push=None):
+    """tests/test_control.py's loop: act, step, observe. ``push`` takes each
+    greedy action once the agent is warm. Returns (actions, losses)."""
+    obs = env.reset()
+    actions, losses = [], []
+    for _ in range(steps):
+        a = agent.act(obs)
+        next_obs, r = env.step(a)
+        loss = agent.observe(obs, a, r, next_obs, 0.0)
+        actions.append(a)
+        losses.append(loss)
+        obs = next_obs
+        if push is not None and loss is not None:
+            push(agent.act(obs, greedy=True), r)
+    return actions, losses
+
+
+def _update_ms(agent, env, n: int, dev) -> float:
+    """Median ms of ``agent._update`` on replay batches: CUDA events on the
+    card, the host clock on the CPU (after filling the buffer by random
+    actions)."""
+    import torch
+
+    obs = env.reset()
+    rng = np.random.default_rng(DQN_SEED)
+    for _ in range(2 * agent.cfg.batch_size):
+        a = int(rng.integers(env.n_actions))
+        next_obs, r = env.step(a)
+        agent.buffer.push(obs, a, r, next_obs, 0.0)
+        obs = next_obs
+    batch = [torch.from_numpy(b).to(dev) for b in agent.buffer.sample(rng, agent.cfg.batch_size)]
+    batch[1] = batch[1].long()
+    if dev.type == "cuda":
+        return cuda_event_ms(lambda: agent._update(*batch), n)
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        agent._update(*batch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def dqn_phase(dev, card: str, reset, counts) -> dict:
+    """Phase 26: the DQN IRS controller on the card. The bandit of
+    tests/test_control.py:34-52 (DQN_CFG, DQN_STEPS steps,
+    ``DqnAgent(device="cuda")`` over ``IrsPowerEnv`` on the card), each
+    greedy action after the warm-up pushed through ``IrsControlClient`` to a
+    local ``IrsControlServer``: the greedy action's power within 1 dB of the
+    best action's, every push arrived in order. Then DQN_PARITY_STEPS steps
+    on the card and on the CPU from the card agent's initial parameters, one
+    environment driving both: equal actions, losses within DQN_LOSS_RTOL.
+    Prints steps/s and the update's ms. Returns the kernels' launches of
+    the controller's run (none of the four lies on it)."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.control import (
+        DqnAgent, DqnConfig, IrsControlClient, IrsControlServer, IrsPowerEnv)
+
+    cpu = torch.device("cpu")
+    env = IrsPowerEnv(n_grid=3, obs_dim=4, device=dev)
+    cfg = DqnConfig(n_actions=env.n_actions, **DQN_CFG)
+    srv = IrsControlServer()
+    pushed = []
+    try:
+        cli = IrsControlClient(port=srv.port)
+
+        def push(action, power):
+            cli.send_action(action, meta={"step": len(pushed), "power_db": power})
+            pushed.append(action)
+
+        reset()
+        agent = DqnAgent(cfg, seed=DQN_SEED, device=dev)
+        t0 = time.perf_counter()
+        _bandit(agent, env, DQN_STEPS, push)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        cli.close()
+        arrived = wait_for(lambda: len(srv.actions) >= len(pushed), 10.0)
+        got = [m["action"] for m in srv.actions]
+    finally:
+        srv.stop()
+    best = env.best_action()
+    greedy = agent.act(env.history, greedy=True)
+    p_greedy, p_best = env._power_db(env.codebook[greedy]), env._power_db(env.codebook[best])
+    check(p_greedy >= p_best - 1.0,
+          f"dqn: greedy action {greedy} at {p_greedy:.3f} dB, best {best} at {p_best:.3f} dB")
+    check(arrived and got == pushed and [m["step"] for m in srv.actions] == list(range(len(pushed))),
+          f"dqn: {len(got)} of {len(pushed)} pushed actions arrived, in order {got == pushed}")
+    check(all(v == 0 for v in launches.values()),
+          f"dqn: the kernels of the RX path launched {launches}")
+
+    # the card against the CPU from one set of initial parameters
+    init, runs = None, []
+    for d in (dev, cpu):
+        a = DqnAgent(cfg, seed=DQN_SEED, device=d)
+        if init is None:
+            init = {k: v.detach().cpu().clone() for k, v in a.net.state_dict().items()}
+        a.net.load_state_dict(init)
+        a.target.load_state_dict(init)
+        runs.append(_bandit(a, env, DQN_PARITY_STEPS))
+    (act_c, loss_c), (act_h, loss_h) = runs
+    first = next((i for i, (c, h) in enumerate(zip(act_c, act_h)) if c != h), None)
+    check(first is None, f"dqn: card and CPU actions differ from step {first}")
+    rel = max(abs(c - h) / abs(h) for c, h in zip(loss_c, loss_h) if h is not None)
+    check(rel <= DQN_LOSS_RTOL, f"dqn: card losses {rel:.3g} relative from the CPU's")
+
+    # the update's time at the bandit's batch and at the default config
+    times, shapes = {}, {}
+    for label, mk_env, mk_cfg in (
+            ("bandit", lambda d: IrsPowerEnv(n_grid=3, obs_dim=4, device=d),
+             lambda e: DqnConfig(n_actions=e.n_actions, **DQN_CFG)),
+            ("default", lambda d: IrsPowerEnv(device=d), lambda e: DqnConfig())):
+        for where, d in (("card", dev), ("cpu", cpu)):
+            e = mk_env(d)
+            c = mk_cfg(e)
+            times[label, where] = _update_ms(DqnAgent(c, seed=DQN_SEED, device=d), e,
+                                             DQN_TIMED, d)
+        shapes[label] = (e.n_actions, c.batch_size)
+    print(f"dqn (IrsPowerEnv(n_grid=3, obs_dim=4), {env.n_actions} actions, {DQN_STEPS} steps, "
+          f"batch {cfg.batch_size}): {DQN_STEPS / wall:.1f} steps/s on the card (act, env, "
+          f"observe, greedy push; {wall:.2f} s); greedy {greedy} at {p_greedy:.3f} dB, best "
+          f"{best} at {p_best:.3f} dB; {len(pushed)} greedy actions pushed over TCP, all arrived "
+          f"in order; the first {DQN_PARITY_STEPS} steps card against CPU: equal actions, losses "
+          f"within {rel:.2e} relative ({DQN_LOSS_RTOL}); launches {json.dumps(launches)} ({card})")
+    print(f"dqn update (a double-DQN Adam step, median of {DQN_TIMED}; the card by CUDA events, "
+          f"the CPU by the host clock): " + "; ".join(
+              f"{k} ({shapes[k][0]} actions, batch {shapes[k][1]}): card {times[k, 'card']:.3f} ms, "
+              f"CPU {times[k, 'cpu']:.3f} ms" for k in ("bandit", "default")) + f" ({card})")
+    return launches
+
+
+def _card_vs_cpu(label: str, make, inputs, dev, rtol: float, fn=None):
+    """Builds ``make(device)`` on the card from ZOO_SEED and on the CPU with
+    the card's state; runs ``fn(model, *inputs)`` (default: the forward)
+    under no_grad on each; every output within rtol of its peak. Returns
+    (max error relative to the peak, the card's ms a call by CUDA events)."""
+    import torch
+
+    fn = fn or (lambda m, *a: m(*a))
+    torch.manual_seed(ZOO_SEED)
+    model = make(dev).eval()
+    host = make(torch.device("cpu")).eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = fn(model, *(t.to(dev) for t in inputs))
+        want = fn(host, *inputs)
+        ms = cuda_event_ms(lambda: fn(model, *(t.to(dev) for t in inputs)), 5)
+    got, want = ([got] if torch.is_tensor(got) else list(got)), (
+        [want] if torch.is_tensor(want) else list(want))
+    err = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"zoo {label}: card output {tuple(g.shape)} against {tuple(w.shape)}, finite "
+              f"{bool(torch.isfinite(g).all())}")
+        err = max(err, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    check(err <= rtol, f"zoo {label}: card {err:.3g} of the peak from the CPU path ({rtol})")
+    return err, ms
+
+
+def zoo_phase(dev, card: str, reset, counts) -> dict:
+    """Phase 27: the model zoo on the card. ``mae_vit_base_patch16`` at full
+    width (embed 768, depth 12, 12 heads; decoder 512, depth 8, 16 heads;
+    224 x 224, MAE_BATCH kodim23 crops, mask 0.75, noise from a CUDA
+    generator) from seeded weights: loss, forward ms (CUDA events, median
+    of MAE_TIMED), peak memory, a profiled forward; at MAE_CHECK_BATCH the
+    card's loss, pred, mask and ids against the port's CPU path on the same
+    weights and noise. Then ViT(), a Swin-T stage-1 block and PatchMerging,
+    ConditionalVAE(), ViTEncoder / ViTDecoder, GNN, PropagNet and CSAAFB
+    each on the card against its CPU path (ZOO_RTOL). Returns the kernels'
+    launches of the zoo's runs (none of the four lies on them)."""
+    import torch
+    from PIL import Image
+
+    from gnuradio_wifi_imagetransfer_tpu_torch import models as zoo
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import normalize_image
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(ZOO_SEED)
+    img = np.asarray(Image.open(os.path.join(HERE, MODE1_IMAGE)).convert("RGB"))
+    crops = np.stack([img[y: y + 224, x: x + 224] for y, x in zip(
+        rng.integers(0, img.shape[0] - 224, MAE_BATCH), rng.integers(0, img.shape[1] - 224,
+                                                                      MAE_BATCH))])
+    imgs = torch.from_numpy(np.ascontiguousarray(np.moveaxis(normalize_image(crops), -1, 1)))
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+
+    reset()
+    # the peak counts what this phase allocates (weights, inputs,
+    # activations), not what earlier phases still hold
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(ZOO_SEED)
+    t0 = time.perf_counter()
+    mae = zoo.mae_vit_base_patch16(device=dev).eval()
+    build_s = time.perf_counter() - t0
+    x = imgs.to(dev)
+    with torch.no_grad():
+        loss, pred, mask = mae(x, 0.75, generator=gen)
+        fwd_ms = cuda_event_ms(lambda: mae(x, 0.75, generator=gen), MAE_TIMED)
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = device_profile(lambda: mae(x, 0.75, generator=gen))
+    n_params = sum(p.numel() for p in mae.parameters())
+    check(bool(torch.isfinite(loss)) and pred.shape == (MAE_BATCH, 196, 768)
+          and bool(torch.isfinite(pred).all())
+          and bool((mask.sum(dim=1) == 147).all()),
+          f"zoo mae-base: loss {float(loss)}, pred {tuple(pred.shape)}, masked a row "
+          f"{mask.sum(dim=1).tolist()}")
+
+    # the card against the CPU at MAE_CHECK_BATCH, one noise
+    host = zoo.mae_vit_base_patch16(device=cpu).eval()
+    host.load_state_dict({k: v.cpu() for k, v in mae.state_dict().items()})
+    noise = torch.rand((MAE_CHECK_BATCH, 196), generator=gen, device=dev)
+    outs = []
+    with torch.no_grad():
+        for m, d in ((mae, dev), (host, cpu)):
+            xi = imgs[:MAE_CHECK_BATCH].to(d)
+            lat, msk, ids = m.forward_encoder(xi, 0.75, noise.to(d))
+            p = m.forward_decoder(lat, ids)
+            outs.append([t.cpu() for t in (m.forward_loss(xi, p, msk), p, msk, ids)])
+    (l_c, p_c, m_c, i_c), (l_h, p_h, m_h, i_h) = outs
+    loss_rel = abs(float(l_c) - float(l_h)) / abs(float(l_h))
+    pred_err = float((p_c - p_h).abs().max()) / float(p_h.abs().max())
+    check(torch.equal(m_c, m_h) and torch.equal(i_c, i_h),
+          "zoo mae-base: the card's mask or ids differ from the CPU's")
+    check(loss_rel <= MAE_LOSS_RTOL and pred_err <= ZOO_RTOL,
+          f"zoo mae-base: card loss {loss_rel:.3g} relative, pred {pred_err:.3g} of the peak "
+          f"from the CPU's ({MAE_LOSS_RTOL}, {ZOO_RTOL})")
+    print(f"zoo mae_vit_base_patch16 ({n_params / 1e6:.1f} M parameters, seeded; {MAE_BATCH} "
+          f"kodim23 crops of 224 x 224, mask 0.75): loss {float(loss):.5f}; {fwd_ms:.3f} ms a "
+          f"forward (CUDA events, median of {MAE_TIMED}; built in {build_s:.1f} s); peak memory "
+          f"{peak / 2**30:.2f} GiB (weights, inputs, activations); at batch {MAE_CHECK_BATCH} the card's mask and ids equal the "
+          f"CPU path's, loss {loss_rel:.2e} relative, pred within {pred_err:.2e} of its peak "
+          f"({card})")
+    print_profile(f"one mae_vit_base_patch16 forward, batch {MAE_BATCH} ({card})", prof)
+
+    # the other zoo models, each on the card against its CPU path
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    m_, n_, p_ = 4, 16, 2
+    env = tuple(torch.from_numpy((rng.standard_normal(s) + 1j * rng.standard_normal(s)).astype(
+        np.complex64)) for s in ((m_, n_), (n_, p_), (m_, p_)))
+    labels = torch.eye(10)[[1, 7]]
+    cases = [
+        ("ViT() 224, patch 16, dim 512, depth 6", lambda d: zoo.ViT(device=d),
+         (rand(2, 3, 224, 224),), ZOO_RTOL, None),
+        ("SwinTransformerBlock Swin-T stage 1 (96, 56 x 56, 3 heads, window 7, shift 3)",
+         lambda d: zoo.SwinTransformerBlock(96, (56, 56), 3, 7, 3, device=d),
+         (rand(2, 56 * 56, 96),), ZOO_RTOL, None),
+        ("PatchMerging (56 x 56, 96)", lambda d: zoo.PatchMerging((56, 56), 96, device=d),
+         (rand(2, 56 * 56, 96),), ZOO_RTOL, None),
+        ("ConditionalVAE() 64 x 64, c = 128, eval", lambda d: zoo.ConditionalVAE(device=d),
+         (rand(2, 3, 64, 64), labels, rand(2, 8192)), ZOO_RTOL,
+         lambda m, x, y, eps: (lambda o: (o[0], o[2], o[3]))(m(x, y, eps=eps))),
+        ("ViTEncoder(16, 32) / ViTDecoder(4, 128), layer_depth 2",
+         lambda d: torch.nn.ModuleDict({"enc": zoo.ViTEncoder(16, 32, device=d),
+                                        "dec": zoo.ViTDecoder(4, 128, device=d)}),
+         (rand(1, 256, 32), rand(1, 4, 64)), ZOO_RTOL_DEEP,
+         lambda m, x, c: (lambda z: (z, m["dec"](z, c)))(m["enc"](x, c))),
+        ("GNN(16, 64), 8 x 6 users", lambda d: zoo.GNN(16, 64, device=d),
+         (rand(8, 6, 3), torch.from_numpy(rng.integers(0, 5, (2, 15)))), ZOO_RTOL, None),
+        (f"PropagNet, {n_} elements, {m_} antennas, {p_} users",
+         lambda d: zoo.PropagNet(env, device=d),
+         (torch.ones(m_, dtype=torch.complex64),), ZOO_RTOL, None),
+        ("CSAAFB(20 dB) on (2, 128, 30, 30)", lambda d: zoo.CSAAFB(20.0, 128, device=d),
+         (rand(2, 128, 30, 30),), ZOO_RTOL, None),
+    ]
+    report = []
+    for label, make, inputs, rtol, fn in cases:
+        err, ms = _card_vs_cpu(label, make, inputs, dev, rtol, fn)
+        report.append(f"{label}: {err:.2e} of the peak, {ms:.3f} ms")
+    launches = counts()
+    check(all(v == 0 for v in launches.values()),
+          f"zoo: the kernels of the RX path launched {launches}")
+    print("zoo, the card against its CPU path (forward ms by CUDA events, median of 5): "
+          + "; ".join(report) + f"; launches {json.dumps(launches)} ({card})")
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -2406,6 +2727,10 @@ def main() -> None:
     irs_phase(dev, card)
     train_launches = training_phase(dev, card, reset, counts)
 
+    # -- 26-27. the DQN controller and the model zoo (no kernel of ours) ----
+    dqn_launches = dqn_phase(dev, card, reset, counts)
+    zoo_launches = zoo_phase(dev, card, reset, counts)
+
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
@@ -2454,7 +2779,8 @@ def main() -> None:
                     "bound_by": by, "library_ms": lib,
                     "radio_launches": {k: v[name] for k, v in radio_launches.items()},
                     "app_launches": {k: v[name] for k, v in app_launches.items()},
-                    "sv_launches": sv_launches[name], "train_launches": train_launches[name]})
+                    "sv_launches": sv_launches[name], "train_launches": train_launches[name],
+                    "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name]})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

@@ -15,10 +15,17 @@ layouts change as follows:
   Flax Conv kernel           (kh, kw, I/groups, O) -> Conv2d weight (O, I/groups, kh, kw)
   ConvTransposeTorch kernel  (kh, kw, O, I)        -> ConvTranspose2d weight (I, O, kh, kw)
   Dense kernel               (I, O)                -> Linear weight (O, I)
+  attention query/key/value  kernel (D, H, hd)     -> Linear weight (H*hd, D)
+    (DenseGeneral of Flax's  bias (H, hd)          -> Linear bias (H*hd,)
+    MultiHeadDotProductAttention)
+  attention out              kernel (H, hd, D)     -> Linear weight (D, H*hd)
+  Embed embedding            (N, F)                -> Embedding weight (N, F)
   BatchNorm scale/bias, batch_stats mean/var       -> weight/bias, running_mean/running_var
   PReLU alpha                                      -> weight
   GDN beta/gamma                                   -> the same (reparameterised sqrt form)
-  SOMANet shared_phi                               -> the same
+  raw parameters (SOMANet's shared_phi, pos_embedding, mask_token, cls_token,
+  mix_heads_pre_attn, mix_heads_post_attn, relative_position_bias_table,
+  phi)                                             -> the same
 
 ``flax_from_module`` is the reverse carrier: a module's state -> the
 Flax-shaped variables tree the JAX package's SOMANet holds, so
@@ -51,7 +58,10 @@ CHECKPOINTS = ("jsce_soma_dscn_240.npz", "jsce_soma_dscn.npz")
 _LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
          ("params", "alpha"): "weight", ("params", "beta"): "beta",
          ("params", "gamma"): "gamma", ("batch_stats", "mean"): "running_mean",
-         ("batch_stats", "var"): "running_var", ("params", "shared_phi"): "shared_phi"}
+         ("batch_stats", "var"): "running_var", ("params", "embedding"): "weight"}
+# parameters a module declares itself (``self.param``), carried by name as they are
+_RAW = ("shared_phi", "pos_embedding", "mask_token", "cls_token", "mix_heads_pre_attn",
+        "mix_heads_post_attn", "relative_position_bias_table", "phi")
 
 
 def _flatten(tree, prefix=""):
@@ -127,13 +137,23 @@ def default_checkpoint() -> Optional[str]:
     return None
 
 
-def _to_torch(collection: str, leaf: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+def _to_torch(collection: str, owner: str, leaf: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """(torch name, value) of the leaf ``leaf`` of the Flax module named ``owner``."""
     if collection == "params" and leaf == "kernel":
         if v.ndim == 4:
             return "weight", v.transpose(3, 2, 0, 1)
         if v.ndim == 2:
             return "weight", v.T
+        if v.ndim == 3:
+            # DenseGeneral: the attention's "out" contracts (H, hd), the
+            # query, key and value project D onto (H, hd)
+            n_in = v.shape[0] * v.shape[1] if owner == "out" else v.shape[0]
+            return "weight", v.reshape(n_in, -1).T
         raise ValueError(f"a {v.ndim}-d kernel has no torch layout here")
+    if collection == "params" and leaf == "bias" and v.ndim == 2:
+        return "bias", v.reshape(-1)                     # DenseGeneral's (H, hd)
+    if collection == "params" and leaf in _RAW:
+        return leaf, v
     try:
         return _LEAF[collection, leaf], v
     except KeyError:
@@ -149,7 +169,7 @@ def state_dict_from_flax(variables: collections.abc.Mapping,
     out = {}
     for path, v in _flatten(variables).items():
         collection, *mods, leaf = path.split(SEP)
-        name, v = _to_torch(collection, leaf, v)
+        name, v = _to_torch(collection, mods[-1] if mods else "", leaf, v)
         key = ".".join(mods + [name])
         if key not in target:
             raise KeyError(f"leaf {path} has no tensor {key} in {type(module).__name__}")

@@ -560,3 +560,66 @@ def test_tx_radio_into_rx_radio_on_cuda(dev):
         txr.stop()
         rxr.stop()
         out.close()
+
+
+def test_dqn_agent_on_cuda_matches_cpu(dev):
+    """tests/test_control.py's bandit, 150 steps on the card and on the CPU
+    from one set of initial parameters and one environment: equal actions,
+    losses within 1e-5 relative; none of the four kernels launches."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.control import DqnAgent, DqnConfig, IrsPowerEnv
+
+    env = IrsPowerEnv(n_grid=3, obs_dim=4, device=dev)
+    cfg = DqnConfig(obs_dim=4, n_actions=env.n_actions, batch_size=32, buffer_size=2000,
+                    eps_decay_steps=300, gamma=0.0, learning_rate=3e-3, target_update=25)
+    kernels = (k1.sync_stats, k1.sync_detect, k2.viterbi_decode, k2.viterbi_decode_many,
+               k34.fir_filter, k34.polyphase_resample)
+    before = [k.launches for k in kernels]
+    init, runs = None, []
+    for d in (dev, torch.device("cpu")):
+        agent = DqnAgent(cfg, seed=1, device=d)
+        if init is None:
+            init = {k: v.detach().cpu().clone() for k, v in agent.net.state_dict().items()}
+        agent.net.load_state_dict(init)
+        agent.target.load_state_dict(init)
+        obs, actions, losses = env.reset(), [], []
+        for _ in range(150):
+            a = agent.act(obs)
+            next_obs, r = env.step(a)
+            losses.append(agent.observe(obs, a, r, next_obs, 0.0))
+            actions.append(a)
+            obs = next_obs
+        runs.append((actions, losses))
+    (act_c, loss_c), (act_h, loss_h) = runs
+    assert act_c == act_h
+    for c, h in zip(loss_c, loss_h):
+        assert (c is None and h is None) or abs(c - h) <= 1e-5 * abs(h)
+    assert [k.launches for k in kernels] == before
+
+
+def test_masked_autoencoder_on_cuda_matches_cpu(dev):
+    """A small MaskedAutoencoderViT on the card against the CPU path on the
+    same weights and noise: mask and ids exactly, loss and pred within
+    1e-4 of their peak."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.models import MaskedAutoencoderViT
+
+    def make(d):
+        return MaskedAutoencoderViT(img_size=32, patch_size=8, embed_dim=64, depth=2,
+                                    num_heads=4, decoder_embed_dim=32, decoder_depth=1,
+                                    decoder_num_heads=4, device=d).eval()
+
+    torch.manual_seed(0)
+    card, host = make(dev), make("cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    imgs = torch.randn(2, 3, 32, 32)
+    noise = torch.rand(2, 16, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    outs = []
+    with torch.no_grad():
+        for m, d in ((card, dev), (host, torch.device("cpu"))):
+            x = imgs.to(d)
+            lat, mask, ids = m.forward_encoder(x, 0.75, noise.to(d))
+            pred = m.forward_decoder(lat, ids)
+            outs.append([t.cpu() for t in (m.forward_loss(x, pred, mask), pred, mask, ids)])
+    (l_c, p_c, m_c, i_c), (l_h, p_h, m_h, i_h) = outs
+    assert torch.equal(m_c, m_h) and torch.equal(i_c, i_h)
+    torch.testing.assert_close(l_c, l_h, rtol=1e-4, atol=0)
+    torch.testing.assert_close(p_c, p_h, rtol=0, atol=1e-4 * float(p_h.abs().max()))

@@ -49,7 +49,9 @@ def test_port_imports_without_jax_or_the_jax_package():
             "runtime.bridge", "runtime.native", "utils.image", "utils.tracing",
             "models.layers", "models.rcb", "models.afb", "models.encoder", "models.decoder",
             "models.weights", "models.jsce", "utils.metrics", "runtime.apps",
-            "runtime.socket_demo", "runtime.misc_demos")}
+            "runtime.socket_demo", "runtime.misc_demos", "control", "control.dqn_irs",
+            "models.pos_embed", "models.vit", "models.mae", "models.swin", "models.vit_codec",
+            "models.csa", "models.gnn", "models.propagnet", "models.vae")}
         assert new <= set(sys.modules), new - set(sys.modules)
         print("OK", len([n for n in sys.modules if n.startswith(port.__name__)]))
     """)
