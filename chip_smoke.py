@@ -180,11 +180,34 @@ holds each hand-written kernel against its plain PyTorch version:
      block and PatchMerging, ConditionalVAE(), ViTEncoder / ViTDecoder,
      GNN, PropagNet and CSAAFB each on the card against its CPU path
      (ZOO_RTOL);
+ 28. the (channel, time) mesh in a one-rank NCCL group
+     (``init_process_group("nccl", "tcp://127.0.0.1:<free port>")``,
+     destroyed after phase 30): ``make_mesh(4, 16)`` at the bench shape
+     (blocks of 262 144, sc16, 4 slots) on 2 super-blocks, frames across
+     every block seam and one flush against the stream's end; 3
+     overlapping strides; every frame bit-exact and the good records equal
+     to the local executor's on the same stream; one ``sync_detect`` and
+     one ``viterbi_decode_many`` a step, no dense K1, K3 or K4, every
+     call held against its plain version; ``mesh_step`` ms (CUDA events),
+     the host layout ms and copy ms, a profiled step;
+ 29. the adaptive mesh (1 x 4 cells, 128 slots, sc8) on the mixed stream
+     of two super-blocks against the local adaptive executor, and the
+     front-end mesh (4 x 16, ``resample=(1, 2), ppm=40``) on phase 11's
+     capture against phase 11's records, K1 and K2 held;
+ 30. the data-parallel trainer (a ``make_data_mesh`` over the group) for 2
+     m2m steps at the reference geometry from the packaged npz against
+     the local Trainer on the card, at the SMALL_* tolerances (parameters
+     2 lr a step);
+ 31. the three root scripts at small settings, at once, each in its own
+     process: ``demo_torch.py`` (48 x 48, the canvas bit for bit),
+     ``tune_equalizer_torch.py`` (4 frames) and ``scaling_report_torch.py
+     --procs 1`` (one NCCL rank);
      then one JSON line of kernel timings, bounds and launch counts (each
      kernel's ``radio_launches`` are those of phases 18 and 19, its
      ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
-     ``train_launches`` phase 25's, ``dqn_launches`` phase 26's and
-     ``zoo_launches`` phase 27's).
+     ``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
+     ``zoo_launches`` phase 27's and ``mesh_launches`` those of phases
+     28-30).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -193,8 +216,9 @@ A). It builds the kernels into that checkout's own build directory.
 
 Launch counts are set to 0 just before each main-path run (7 to 13, each
 radio run of 18-19, the first run of each app phase, 20-21, the SV fading
-receives of 23, the training script of 25, the controller's run of 26
-and the zoo's runs of 27) and read just after; launches made to compare or
+receives of 23, the training script of 25, the controller's run of 26,
+the zoo's runs of 27, each mesh run of 28-29 and the data-parallel
+trainer of 30) and read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
 run none of the four kernels (their convolutions are cuDNN's, their
 products cuBLAS's), so their counts must stay 0.
@@ -315,6 +339,12 @@ DQN_LOSS_RTOL = 1e-5
 # float64 run on the CPU), the MAE loss within MAE_LOSS_RTOL
 MAE_BATCH, MAE_CHECK_BATCH, MAE_TIMED, ZOO_SEED = 8, 2, 20, 27
 ZOO_RTOL, ZOO_RTOL_DEEP, MAE_LOSS_RTOL = 1e-4, 5e-4, 1e-5
+
+# the mesh (phases 28-31): the fixed mesh stream holds MESH_SUPERBLOCKS
+# super-blocks of the bench shape (3 overlapping strides); the scripts run
+# at small settings, each within SCRIPT_TIMEOUT seconds
+MESH_SUPERBLOCKS = 2
+SCRIPT_TUNE_FRAMES, SCRIPT_TIMEOUT = 4, 300
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -2156,6 +2186,307 @@ def zoo_phase(dev, card: str, reset, counts) -> dict:
     return launches
 
 
+def free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def seam_positions(n: int, block: int) -> list[int]:
+    """Frame positions of the fixed mesh stream: one burst across each block
+    seam (its edge 700 samples before it, across the super-block strides'
+    seams too), one inside each block, one flush against the stream end."""
+    pos = []
+    for b in range(1, n // block):
+        pos += [b * block - block // 2, b * block - 700]
+    return pos + [n - block // 2, n - 1900]
+
+
+def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[dict, dict]:
+    """Phases 28-30 on a one-rank NCCL group: the fixed mesh step at the
+    bench shape against the local executor, the adaptive mesh on the mixed
+    stream, the front-end mesh on the 2x +40 ppm capture against phase
+    11's records, and the data-parallel trainer at the reference geometry
+    against the local Trainer. Returns each run's launches {label:
+    {kernel: n}} and the kernels held against their plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig, FrontendConfig
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+        AdaptiveStreamExecutor,
+        StreamExecutor,
+        make_data_mesh,
+        make_mesh,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import HALO_LEFT
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac, tx
+
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    held: dict = {}
+    launches: dict = {}
+
+    def hold(calls, label):
+        for name, (e, shapes) in hold_recorded(calls, label).items():
+            e0, s0 = held.get(name, (0.0, []))
+            held[name] = (max(e0, e), s0 + shapes)
+
+    def good(records):
+        return {(r.channel, r.global_start, r.rate_idx, r.psdu.tobytes())
+                for r in records if r.parity_ok}
+
+    t_init = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_tcp_port()}",
+                            rank=0, world_size=1)
+    group = dist.group.WORLD
+    print(f"NCCL group of one rank: {time.perf_counter() - t_init:.1f} s to start")
+    try:
+        # -- 28. the fixed mesh step at the bench shape ---------------------
+        plan = tx.tx_plan(MCS, PSDU_LEN)
+        mesh = make_mesh(CHANNELS, TIME_BLOCKS, group=group)
+        cfg = ExecutorConfig(block_size=BLOCK, time_shards=TIME_BLOCKS, channels=CHANNELS,
+                             max_frames_per_block=MAX_FRAMES, wire_format="sc16")
+        mex = StreamExecutor(plan, mesh=mesh, exec_cfg=cfg, device=dev)
+        span = TIME_BLOCKS * BLOCK
+        stride = span - (mex.halo_right + HALO_LEFT)
+        n = MESH_SUPERBLOCKS * span
+        positions = seam_positions(n, BLOCK)
+        rng = np.random.default_rng(28)
+        rows, sent = [], []
+        for ch in range(CHANNELS):
+            x, frames = make_stream(tx, n, positions, len(positions), rng, dev)
+            rows.append(x)
+            sent += [(ch, f.tobytes()) for f in frames]
+        stream = np.stack(rows)
+        reset()
+        t0 = time.perf_counter()
+        with recording(*targets) as calls:
+            records = mex.run(stream)
+        wall = time.perf_counter() - t0
+        launches["mesh-fixed"] = counts()
+        steps = len(range(0, n, stride))
+        got = good(records)
+        missing = set(sent) - {(c, p) for c, _, _, p in got}
+        check(not missing and len(got) == len(sent),
+              f"mesh fixed: {len(got)} good records for {len(sent)} frames, {len(missing)} "
+              f"missing")
+        lx = launches["mesh-fixed"]
+        check(lx["sync_detect"] == steps and lx["viterbi_decode_many"] == steps
+              and all(lx[k] == 0 for k in ("sync_stats", "viterbi_decode", "fir_filter",
+                                           "polyphase_resample")),
+              f"mesh fixed: launches {lx} for {steps} steps")
+        hold(calls, "mesh fixed")
+        local = StreamExecutor(plan, exec_cfg=cfg, device=dev).run(stream)
+        check(good(local) == got, f"mesh fixed: {len(got)} good records, the local executor's "
+                                  f"{len(good(local))} differ")
+        layout_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            wire, _ = mex.mesh_layout(stream, stride)
+            layout_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        wire = torch.from_numpy(wire).to(dev)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        step_ms = cuda_ms(lambda: mex.mesh_step(wire), 5)
+        samples = CHANNELS * span
+        print(f"mesh fixed ({CHANNELS} x {TIME_BLOCKS} cells of {BLOCK} on one NCCL rank, sc16, "
+              f"{n} samples a channel, {steps} overlapping strides): {len(got)}/{len(sent)} "
+              f"frames bit-exact ({len(positions)} a channel, {n // BLOCK - 1} across block "
+              f"seams, one flush against the end), good records equal the local "
+              f"executor's; run {wall:.2f} s wall; mesh_step {step_ms:.3f} ms "
+              f"({samples / step_ms / 1e3:.1f} Msamples/s, CUDA events, 5 steps), host layout "
+              f"{min(layout_ms):.1f} ms (best of 3: {[round(v, 1) for v in layout_ms]}), "
+              f"host-to-device copy {copy_ms:.1f} ms; launches {json.dumps(lx)} ({card})")
+        print_profile("mesh step", device_profile(lambda: mex.mesh_step(wire)))
+        del wire, local, calls
+
+        # -- 29. the adaptive mesh on the mixed stream, the front-end mesh ---
+        aspan = ADAPTIVE_SHARDS * BLOCK
+        acfg = ExecutorConfig(block_size=BLOCK, time_shards=ADAPTIVE_SHARDS,
+                              max_frames_per_block=ADAPTIVE_SLOTS, wire_format="sc8")
+        x, psdus, mcs_seq = adaptive_stream(tx, mac, None, 2 * aspan, np.random.default_rng(29),
+                                            dev)
+        aex = AdaptiveStreamExecutor(mesh=make_mesh(1, ADAPTIVE_SHARDS, group=group),
+                                     exec_cfg=acfg, device=dev)
+        reset()
+        t0 = time.perf_counter()
+        with recording(*targets) as calls:
+            recs = aex.run(x)
+        wall = time.perf_counter() - t0
+        la = launches["mesh-adaptive"] = counts()
+        steps = len(range(0, x.shape[1], aspan - (aex.halo_right + HALO_LEFT)))
+        back = {(r.rate_idx, r.psdu.tobytes()) for r in recs if r.parity_ok}
+        lost = [i for i, (m, f) in enumerate(zip(mcs_seq, psdus))
+                if (int(m), f.tobytes()) not in back]
+        check(not lost, f"mesh adaptive: frames {lost[:10]} of {len(psdus)} lost")
+        check(la["sync_detect"] == steps and la["viterbi_decode"] == steps
+              and la["viterbi_decode_many"] == len(calls["viterbi_decode_many"]) >= 8
+              and la["sync_stats"] == 0,
+              f"mesh adaptive: launches {la} for {steps} steps")
+        hold(calls, "mesh adaptive")
+        alocal = AdaptiveStreamExecutor(exec_cfg=acfg, device=dev).run(x)
+        check(good(alocal) == good(recs), "mesh adaptive: good records differ from the local "
+                                          "executor's")
+        print(f"mesh adaptive (1 x {ADAPTIVE_SHARDS} cells of {BLOCK}, {ADAPTIVE_SLOTS} slots, "
+              f"sc8, the mixed stream of {x.shape[1]} samples, {steps} strides): "
+              f"{len(psdus)}/{len(psdus)} frames bit-exact at their rates, good records equal "
+              f"the local executor's; {wall * 1e3:.1f} ms wall ({len(psdus) / wall:.0f} "
+              f"frames/s); launches {json.dumps(la)} ({card})")
+        del calls
+
+        fex = StreamExecutor(plan, mesh=mesh, device=dev, exec_cfg=dataclasses.replace(
+            cfg, frontend=FrontendConfig(resample=(1, 2), ppm=40.0)))
+        reset()
+        t0 = time.perf_counter()
+        with recording(*targets) as calls:
+            frecs = fex.run(cap_ppm)
+        wall = time.perf_counter() - t0
+        lf = launches["mesh-frontend"] = counts()
+        steps = len(range(0, fex.effective_len(cap_ppm.shape[1]), span))
+        check(lf["sync_detect"] == steps and lf["viterbi_decode_many"] == steps
+              and all(lf[k] == 0 for k in ("sync_stats", "viterbi_decode", "fir_filter",
+                                           "polyphase_resample")),
+              f"mesh front-end: launches {lf} for {steps} steps")
+        check(good(frecs) == good(ppm_records) and len(good(frecs)) == CHANNELS
+              * FRAMES_PER_BLOCK * TIME_BLOCKS,
+              f"mesh front-end: {len(good(frecs))} good records, phase 11's local "
+              f"{len(good(ppm_records))} differ")
+        hold(calls, "mesh front-end")
+        print(f"mesh front-end (resample=(1, 2), ppm=40, {CHANNELS} x {TIME_BLOCKS} cells, input "
+              f"{cap_ppm.shape}): {len(good(frecs))} frames bit-exact, good records equal phase "
+              f"11's local run; {wall:.2f} s wall; launches {json.dumps(lf)} ({card})")
+        del calls
+        shapes = {k: sorted({str(s) for s in v[1]}) for k, v in held.items()}
+        print(f"mesh runs: every kernel call held against its plain version on the same inputs:"
+              f" max error {json.dumps({k: v[0] for k, v in held.items()})}; inputs "
+              f"{json.dumps(shapes)}")
+
+        # -- 30. the data-parallel trainer at the reference geometry ---------
+        launches["mesh-train"] = dp_training_phase(dev, card, reset, counts,
+                                                   make_data_mesh(group=group))
+    finally:
+        dist.destroy_process_group()
+    return launches, held
+
+
+def dp_training_phase(dev, card: str, reset, counts, mesh) -> dict:
+    """Phase 30: 2 m2m steps at the reference geometry (240 x 240, c = 128,
+    2 users of 8 kodim crops) from the packaged npz, the Trainer on a data
+    mesh over the group against the local Trainer on the card: losses,
+    the first step's gradients, parameters (2 lr a step + 1e-6) and batch
+    statistics within the SMALL_* tolerances. Returns the data-parallel
+    run's launches (none of the four kernels lies on it)."""
+    import torch
+
+    import make_weights_torch as mwt
+    from gnuradio_wifi_imagetransfer_tpu_torch.models import weights
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.somanet import SOMANet, pe_labels
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.trainer import Trainer
+
+    img, c, asset, b = mwt.GEOMETRIES["ref"][:4]
+    variables, _ = weights.load_soma_npz(weights.ASSETS / asset)
+    rng = np.random.default_rng(30)
+    pool = mwt.load_kodak(mwt.TRAIN_IMAGES)
+    batches = [np.stack([mwt.crops(rng, pool, b, size=img) for _ in range(mwt.U)])
+               for _ in range(2)]
+    labels = pe_labels(mwt.TARGET_USERS)
+    runs = []
+    for m in (mesh, None):
+        model = SOMANet(c, img, device=dev)
+        model.load_state_dict(weights.state_dict_from_flax(variables, model))
+        tr = Trainer(model, learning_rate=SMALL_LR, mesh=m, device=dev)
+        reset()
+        losses = [tr.train_step(batches[0], labels, "m2m")]
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        # the second step, warm, timed by CUDA events
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.train_step(batches[1], labels, "m2m"))
+        stop.record()
+        torch.cuda.synchronize()
+        if m is not None:
+            dp_launches = counts()
+        runs.append((losses, grads, weights._flatten(weights.flax_from_module(model)),
+                     start.elapsed_time(stop)))
+        del model, tr
+        torch.cuda.empty_cache()
+    (l_d, g_d, v_d, w_d), (l_l, g_l, v_l, w_l) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_l))
+    grad_bad = [n for n in g_l if float((g_d[n] - g_l[n]).abs().max()) > max(
+        SMALL_GRAD_RTOL * float(g_l[n].abs().max()), SMALL_GRAD_ATOL)]
+    param_err = max(float(np.abs(v_d[k] - v_l[k]).max()) for k in v_l if k.startswith("params"))
+    stats_err = max(float(np.abs(v_d[k] - v_l[k]).max()) for k in v_l
+                    if k.startswith("batch_stats"))
+    print(f"data-parallel trainer (a ('data',) mesh over the one-rank NCCL group), 2 m2m steps "
+          f"at {img} x {img}, c = {c}, 2 x {b} crops, from {asset}, lr {SMALL_LR:g}: losses "
+          f"{np.round(l_d, 7).tolist()} against the local Trainer's {np.round(l_l, 7).tolist()} "
+          f"({loss_rel:.2e} relative); {len(grad_bad)} of {len(g_l)} gradient leaves out of "
+          f"tolerance; parameters within {param_err:.3g} ({param_err / SMALL_LR:.3f} lr), batch "
+          f"statistics within {stats_err:.3g}; the second step {w_d:.1f} ms against "
+          f"{w_l:.1f} ms local (CUDA events); "
+          f"launches {json.dumps(dp_launches)} ({card})")
+    check(loss_rel <= SMALL_LOSS_RTOL and not grad_bad, f"data-parallel trainer: losses "
+          f"{loss_rel:.3g} relative or gradients {grad_bad[:5]} off the local Trainer's")
+    check(param_err <= 2 * 2 * SMALL_LR + 1e-6 and stats_err <= SMALL_STATS_ATOL,
+          f"data-parallel trainer: parameters {param_err:.3g} or statistics {stats_err:.3g}")
+    check(all(v == 0 for v in dp_launches.values()),
+          f"data-parallel trainer: the kernels of the RX path launched {dp_launches}")
+    return dp_launches
+
+
+def script_phase(card: str) -> None:
+    """Phase 31: the three root scripts on the card at small settings, each
+    in a process of its own, all three at once: demo_torch.py (48 x 48,
+    the canvas bit for bit), tune_equalizer_torch.py (SCRIPT_TUNE_FRAMES
+    frames, every setting's PER in its JSON) and scaling_report_torch.py
+    (one NCCL rank, blocks of 32 768 and 16 384: the fixed and adaptive
+    legs and the 64-channel leg, every frame bit-exact)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        cmds = {
+            "demo_torch.py": ["demo_torch.py", "--size", "48", "--timeout", "120"],
+            "tune_equalizer_torch.py": ["tune_equalizer_torch.py", "--frames",
+                                        str(SCRIPT_TUNE_FRAMES), "--out",
+                                        os.path.join(out, "eq.json")],
+            "scaling_report_torch.py": ["scaling_report_torch.py", "--procs", "1", "--block",
+                                        "32768", "--iters", "4", "--adaptive-block", "16384",
+                                        "--pod-block", "8192",
+                                        "--out", os.path.join(out, "scaling.json")]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen([sys.executable, os.path.join(HERE, v[0]), *v[1:]],
+                                     cwd=out, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True) for k, v in cmds.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                outs[k] = p.communicate(timeout=SCRIPT_TIMEOUT)[0]
+        finally:
+            for p in procs.values():
+                p.kill()
+        wall = time.perf_counter() - t0
+        for k, p in procs.items():
+            check(p.returncode == 0, f"{k} exited {p.returncode}: {outs[k][-2000:]}")
+        check("converged bit-exact" in outs["demo_torch.py"],
+              f"demo_torch.py: {outs['demo_torch.py'][-1000:]}")
+        with open(os.path.join(out, "eq.json")) as f:
+            eq = json.load(f)
+        with open(os.path.join(out, "scaling.json")) as f:
+            sc = json.load(f)
+    check(len(eq["lms"]) == 7 and len(eq["sta"]) == 16 and eq["device"] != "cpu",
+          f"tune_equalizer_torch.py: {eq}")
+    demo_line = [ln for ln in outs["demo_torch.py"].splitlines() if "converged" in ln][0]
+    print(f"scripts on the card, at once ({wall:.1f} s wall): demo_torch.py: {demo_line}; "
+          f"tune_equalizer_torch.py ({SCRIPT_TUNE_FRAMES} frames): LMS {json.dumps(eq['lms'])}; "
+          f"STA {json.dumps(eq['sta'])}; scaling_report_torch.py (one NCCL rank): "
+          f"{json.dumps(sc)} ({card})")
+
+
 def main() -> None:
     import argparse
 
@@ -2570,7 +2901,7 @@ def main() -> None:
         cfg, frontend=FrontendConfig(resample=(1, 2), ppm=40.0)))
     reset()
     t_run = time.perf_counter()
-    records = ex_ppm.run(cap_ppm)
+    records = ppm_records = ex_ppm.run(cap_ppm)
     ppm_launches = counts()
     t_run = time.perf_counter() - t_run
     check_path_launches(ppm_launches, n_steps(ex_ppm, cap_ppm), "executor (1/2, +40 ppm)")
@@ -2578,7 +2909,7 @@ def main() -> None:
     print(f"executor run, resample=(1, 2) ppm=40, input {cap_ppm.shape}: "
           f"{n_ok}/{CHANNELS * n_frames} frames bit-exact ({t_run:.2f} s wall); "
           f"launches {json.dumps(ppm_launches)}")
-    del ex_ppm, cap_ppm
+    del ex_ppm
 
     fps, amain, held = adaptive_phases(dev, card, reset, counts)
 
@@ -2731,6 +3062,16 @@ def main() -> None:
     dqn_launches = dqn_phase(dev, card, reset, counts)
     zoo_launches = zoo_phase(dev, card, reset, counts)
 
+    # -- 28-30. the (channel, time) mesh and the data-parallel trainer ------
+    mesh_launches, mesh_held = mesh_phases(dev, card, reset, counts, cap_ppm, ppm_records)
+    del cap_ppm, ppm_records
+    for name, (e, shapes) in mesh_held.items():
+        e0, s0 = held.get(name, (0.0, []))
+        held[name] = (max(e0, e), s0 + shapes)
+
+    # -- 31. the root scripts ------------------------------------------------
+    script_phase(card)
+
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
@@ -2780,7 +3121,8 @@ def main() -> None:
                     "radio_launches": {k: v[name] for k, v in radio_launches.items()},
                     "app_launches": {k: v[name] for k, v in app_launches.items()},
                     "sv_launches": sv_launches[name], "train_launches": train_launches[name],
-                    "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name]})
+                    "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name],
+                    "mesh_launches": {k: v[name] for k, v in mesh_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

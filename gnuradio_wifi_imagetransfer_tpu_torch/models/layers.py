@@ -26,9 +26,11 @@ later work.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -89,12 +91,33 @@ def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
     return LowerBound.apply(x, bound)
 
 
+_BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar("batch_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Within the block (in this thread), BatchNorm in train mode takes its
+    statistics over the whole batch of the ``torch.distributed`` group
+    (None: over the local batch)."""
+    token = _BATCH_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW channels with Flax's semantics (eps 1e-5). With
     ``train``, it normalises by the batch's mean and biased variance
     (Flax's E[x^2] - E[x]^2, floored at 0) and moves the running averages
     to 0.99 * running + 0.01 * batch; else it normalises by the running
-    averages. The state_dict is nn.BatchNorm2d's."""
+    averages. The state_dict is nn.BatchNorm2d's.
+
+    Inside ``global_batch(group)`` (the trainer's data-parallel step), the
+    batch is the group's whole batch, as under JAX's pjit: the per-channel
+    sums of x and x^2 and the count are all-reduced with autograd (the
+    gradient of a sum over ranks is the sum of every rank's gradient)
+    before the mean and variance are formed."""
 
     MOMENTUM = 0.99
 
@@ -106,8 +129,16 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        group = _BATCH_GROUP.get()
+        if group is None:
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        else:
+            c = x.shape[1]
+            sums = dist_fn.all_reduce(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                                                 x.new_full((1,), x.numel() // c)]), group=group)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c: 2 * c] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(mean.detach(), alpha=1.0 - self.MOMENTUM)
             self.running_var.mul_(self.MOMENTUM).add_(var.detach(), alpha=1.0 - self.MOMENTUM)

@@ -105,10 +105,10 @@ class _TrimStage:
         self.in_per_out = in_per_out
 
     def _taps(self, taus: torch.Tensor) -> torch.Tensor:
-        """(B,) fractional delays in [0, 1) -> (B, K) Hann-windowed-sinc
-        interpolation taps for y = x(i + tau): c_t = wsinc(t - c - tau)."""
-        arg = (torch.arange(self.k, dtype=torch.float32, device=taus.device)[None, :]
-               - self.center - taus[:, None])
+        """(..., B) fractional delays in [0, 1) -> (..., B, K) Hann-windowed-
+        sinc interpolation taps for y = x(i + tau): c_t = wsinc(t - c - tau)."""
+        arg = (torch.arange(self.k, dtype=torch.float32, device=taus.device)
+               - self.center - taus[..., None])
         w = torch.clamp(0.5 + 0.5 * torch.cos(math.pi * arg / (self.center + 1)), min=0.0)
         h = torch.sinc(arg) * w
         return h / h.sum(dim=-1, keepdim=True)
@@ -116,18 +116,21 @@ class _TrimStage:
     def apply(self, x: torch.Tensor, sub_starts: torch.Tensor,
               taus: torch.Tensor, n_out: int) -> torch.Tensor:
         """x: (..., N); sub_starts: (B,) window origin of each sub-block
-        (output i of sub-block b reads x[start_b + i .. start_b + i + K));
-        taus: (B,) float32 fractional delay per sub-block. Returns
-        (..., n_out). Starts are clamped into the stream as the JAX
-        package's dynamic slices clamp them."""
+        (output i of sub-block b reads x[start_b + i .. start_b + i + K)),
+        or (..., B), one set a row of x; taus: float32 fractional delays
+        of the same shape. Returns (..., n_out). Starts are clamped into
+        the stream as the JAX package's dynamic slices clamp them."""
         width = self.sub + self.k
         starts = sub_starts.to(torch.int64).clamp(0, max(x.shape[-1] - width, 0))
-        idx = starts[:, None] + torch.arange(width, device=x.device)[None, :]
-        w = x[..., idx]                                  # (..., B, sub+K)
-        h = self._taps(taus)                             # (B, K)
+        idx = starts[..., None] + torch.arange(width, device=x.device)
+        if idx.ndim == 2:
+            w = x[..., idx]                              # (..., B, sub+K)
+        else:
+            w = torch.gather(x[..., None, :].expand(idx.shape[:-1] + x.shape[-1:]), -1, idx)
+        h = self._taps(taus)                             # (..., B, K)
         acc = None
         for t in range(self.k):
-            term = h[:, t, None] * w[..., t: t + self.sub]
+            term = h[..., t, None] * w[..., t: t + self.sub]
             acc = term if acc is None else acc.add_(term)
         return acc.reshape(acc.shape[:-2] + (-1,))[..., :n_out]
 
@@ -296,9 +299,10 @@ class Frontend:
         return mid0, tau0
 
     def correct_block(self, x: torch.Tensor, tau0, ext_out: int) -> torch.Tensor:
-        """(..., block_ext_in(ext_out)) raw cut + tau0 scalar -> (...,
-        ext_out) corrected samples. Stateless: the guards follow from
-        ext_out, so one cached Frontend serves every window size."""
+        """(..., block_ext_in(ext_out)) raw cuts + their tau0 phase scalar
+        (one, or a tensor of x.shape[:-1], one a cut) -> (..., ext_out)
+        corrected samples. Stateless: the guards follow from ext_out, so
+        one cached Frontend serves every window size."""
         mid = x
         if self.decim is not None:
             de = self.decim
@@ -309,7 +313,7 @@ class Frontend:
             n_sub = -(-ext_out // tr.sub)
             tau0 = torch.as_tensor(tau0, dtype=torch.float32, device=x.device)
             blk = torch.arange(n_sub, device=x.device)
-            q = tau0 + blk.to(torch.float32) * tr.sub * tr.delta     # drift, |q| small
+            q = tau0[..., None] + blk.to(torch.float32) * tr.sub * tr.delta  # drift, |q| small
             qf = torch.floor(q)
             sub_starts = (blk * tr.sub).to(torch.int32) + qf.to(torch.int32) - tr.center
             taus = q - qf + (tr.sub / 2) * tr.delta                  # delay at middle

@@ -18,8 +18,18 @@ train)`` maps (U, B, 3, H, W) images and (U, 256) labels to (U, B, 3, H, W)
 outputs; its step functions take the JAX package's NHWC batches (numpy or
 tensors; uint8 pixels are ImageNet-normalised on the device) and move the
 channels first on the device. Checkpoints are ``torch.save`` files where
-the JAX package writes orbax ones. A mesh raises: multi-GPU training is
-not ported.
+the JAX package writes orbax ones.
+
+``mesh=make_data_mesh(group=...)`` trains data-parallel, as the JAX
+package's pjit step over a ("data",) mesh does: every rank is given the
+whole batch and keeps its slice of the per-user batch axis B, parameters
+are replicated (broadcast from the group's first rank when the trainer is
+made), each rank's loss takes the GLOBAL count as its denominator, the
+model's ``layers.BatchNorm`` layers normalise by the group's whole batch
+(``layers.global_batch``), the gradients are SUM-all-reduced in one flat
+buffer after each backward (the loss with them, so the returned loss is
+the global one), and Adam then runs identically on every rank. B must
+split evenly over the mesh.
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from gnuradio_wifi_imagetransfer_tpu_torch.channel.irs import ClusteredIRSChannel
 from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import IMAGENET_MEAN, IMAGENET_STD
-from gnuradio_wifi_imagetransfer_tpu_torch.models.layers import fp32_convs
+from gnuradio_wifi_imagetransfer_tpu_torch.models.layers import fp32_convs, global_batch
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.mesh import Mesh
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
 
 
@@ -180,12 +192,18 @@ class Trainer:
     MODES = ("default", "m2m", "distill")
 
     def __init__(self, model: nn.Module, learning_rate: float | Callable[[int], float] = 1e-4,
-                 mesh=None, distill_decay: float = 0.1, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("the port trains on one device; the JAX package's "
-                                      "mesh-sharded step is not ported")
+                 mesh: Mesh | None = None, distill_decay: float = 0.1, device="cuda"):
+        if mesh is not None and mesh.axis_names != ("data",):
+            raise ValueError(f"the trainer takes a 1-D ('data',) mesh (make_data_mesh), "
+                             f"got axes {mesh.axis_names}")
         self.device = resolve(device)
         self.model = model.to(self.device)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.group
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, 0)
+            for v in self.model.state_dict().values():
+                dist.broadcast(v, src, group=self.group)
         self.schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.schedule(0),
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -209,6 +227,20 @@ class Trainer:
     def _labels(self, labels) -> torch.Tensor:
         return torch.as_tensor(labels, dtype=torch.float32, device=self.device)
 
+    def _local(self, x, axis: int):
+        """This rank's slice of the per-user batch axis (``axis`` of x) and
+        its share of the global batch; the whole x and 1 without a mesh."""
+        if self.mesh is None:
+            return x, 1.0
+        b, shards = x.shape[axis], self.mesh.shape["data"]
+        if b % shards:
+            raise ValueError(f"per-user batch {b} does not split evenly over the data "
+                             f"mesh's {shards} shards")
+        cells = self.mesh.local[0]
+        per = b // shards
+        idx = (slice(None),) * axis + (slice(cells.start * per, cells.stop * per),)
+        return x[idx], (cells.stop - cells.start) / shards
+
     # -- one update ---------------------------------------------------------
 
     def _loss(self, mode: str, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -222,26 +254,39 @@ class Trainer:
         return (_per_user_mse(out, images)
                 + self.distill_decay * _per_user_mse(out, out_t)).mean()
 
-    def _update(self, loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    def _update(self, loss_fn: Callable[[], torch.Tensor], share: float = 1.0) -> torch.Tensor:
         """One Adam update on the gradient of loss_fn() at the schedule's
         rate for this update count. A parameter that the loss does not
         reach gets a zero gradient, so its moments and its step count move
-        as optax's do."""
+        as optax's do. On a data mesh over a group, loss_fn() is this
+        rank's mean, weighted by its ``share`` of the global batch, and the
+        gradients and the loss are summed over the group in one buffer."""
         self.optimizer.zero_grad(set_to_none=True)
-        with fp32_convs():
-            loss = loss_fn()
+        with fp32_convs(), global_batch(self.group):
+            loss = loss_fn() * share
             loss.backward()
+        params = [p for group in self.optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if self.group is not None:
+            flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+            dist.all_reduce(flat, group=self.group)
+            off = 0
+            for p in params:
+                p.grad.copy_(flat[off: off + p.numel()].view_as(p))
+                off += p.numel()
+            loss = flat[-1]
         for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
             group["lr"] = self.schedule(self.count)
         self.optimizer.step()
         self.count += 1
-        return loss.detach()
+        return loss
 
-    def _step(self, mode: str, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        loss = self._update(lambda: self._loss(mode, images, labels))
+    def _step(self, mode: str, images: torch.Tensor, labels: torch.Tensor,
+              share: float = 1.0) -> torch.Tensor:
+        loss = self._update(lambda: self._loss(mode, images, labels), share)
         self.step += 1
         return loss
 
@@ -262,7 +307,8 @@ class Trainer:
     def train_step(self, images, labels, mode: str = "default") -> float:
         """One step on (U, B, H, W, 3) images and (U, 256) labels."""
         self._check_mode(mode)
-        return float(self._step(mode, self._images(images), self._labels(labels)))
+        images, share = self._local(images, 1)
+        return float(self._step(mode, self._images(images), self._labels(labels), share))
 
     def train_steps(self, images_seq, labels_seq, mode: str = "default") -> np.ndarray:
         """K steps from images_seq (K, U, B, H, W, 3) and labels_seq (K, U,
@@ -270,15 +316,17 @@ class Trainer:
         (uint8 pixels are normalised there) and the losses come back once,
         after the last step."""
         self._check_mode(mode)
+        images_seq, share = self._local(images_seq, 2)
         images_seq = torch.as_tensor(images_seq, device=self.device)
         labels_seq = self._labels(labels_seq)
-        losses = [self._step(mode, self._images(images_seq[i]), labels_seq[i])
+        losses = [self._step(mode, self._images(images_seq[i]), labels_seq[i], share)
                   for i in range(images_seq.shape[0])]
         return torch.stack(losses).cpu().numpy()
 
     def train_step_multiband(self, band_images, band_labels, freq_weight=None) -> float:
         """'multi-band' mode (Trainer.py:133-144): band_images (F, U, B, H,
         W, 3), band_labels (F, U, 256), freq_weight (F,) or None."""
+        band_images, share = self._local(band_images, 2)
         images = self._images(band_images)
         labels = self._labels(band_labels)
         weights = np.ones(images.shape[0]) if freq_weight is None else np.asarray(freq_weight)
@@ -290,7 +338,7 @@ class Trainer:
                 total = total + float(weights[f]) * ((out - images[f]) ** 2).mean()
             return total / float(weights.sum())
 
-        loss = self._update(loss_fn)
+        loss = self._update(loss_fn, share)
         self.step += 1
         return float(loss)
 

@@ -425,6 +425,46 @@ def test_adaptive_executor_on_cuda_equals_cpu(dev, algo, wire):
     assert set(sent) <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok}
 
 
+@pytest.mark.parametrize("kind", ["fixed", "adaptive"])
+def test_mesh_on_a_one_rank_nccl_group_equals_cpu(dev, kind):
+    """A (1, 4) mesh over a one-rank NCCL group on the card gives the
+    records of the same mesh on the CPU (group=None): the gather, the
+    sharded step and stage B from host-cut windows."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+        AdaptiveStreamExecutor, StreamExecutor, make_mesh)
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import tx
+
+    x, sent = _adaptive_stream(5)
+    cfg = ExecutorConfig(block_size=4096, time_shards=4, max_frames_per_block=4,
+                         wire_format="sc16")
+
+    def make(mesh, device):
+        if kind == "fixed":
+            return StreamExecutor(tx.tx_plan(2, 50), mesh=mesh, exec_cfg=cfg, device=device)
+        return AdaptiveStreamExecutor(mesh=mesh, exec_cfg=cfg, device=device)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        k1.sync_detect.launches = 0
+        got = make(make_mesh(1, 4, group=dist.group.WORLD), dev).run(x)
+        torch.cuda.synchronize()
+        assert k1.sync_detect.launches > 0
+    finally:
+        dist.destroy_process_group()
+    _same_records(got, make(make_mesh(1, 4), "cpu").run(x))
+    if kind == "adaptive":
+        assert set(sent) <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok}
+
+
 def test_adaptive_receiver_on_cuda_equals_cpu(dev):
     from gnuradio_wifi_imagetransfer_tpu_torch.parallel import AdaptiveReceiver
 

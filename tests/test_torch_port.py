@@ -21,24 +21,26 @@ from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
     AdaptiveReceiver,
     AdaptiveStreamExecutor,
     StreamExecutor,
+    make_mesh,
 )
-from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, tx
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import HALO_LEFT
+from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, sync, tx
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import device, xfer
 
 torch.set_num_threads(2)
 
 
 def test_port_imports_without_jax_or_the_jax_package():
-    """Every module of the port loads with jax blocked and pulls in no
-    module of the JAX package (names compared exactly: the port's own
-    name starts with the same string)."""
+    """Every module of the port, chip_smoke.py and the port's root scripts
+    load with jax blocked and pull in no module of the JAX package (names
+    compared exactly: the port's own name starts with the same string)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         import gnuradio_wifi_imagetransfer_tpu_torch as port
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
             importlib.import_module(m.name)
-        import chip_smoke
+        import chip_smoke, demo_torch, scaling_report_torch, tune_equalizer_torch
         bad = [n for n, m in sys.modules.items() if m is not None and (
                n == "gnuradio_wifi_imagetransfer_tpu"
                or n.startswith("gnuradio_wifi_imagetransfer_tpu.")
@@ -51,7 +53,7 @@ def test_port_imports_without_jax_or_the_jax_package():
             "models.weights", "models.jsce", "utils.metrics", "runtime.apps",
             "runtime.socket_demo", "runtime.misc_demos", "control", "control.dqn_irs",
             "models.pos_embed", "models.vit", "models.mae", "models.swin", "models.vit_codec",
-            "models.csa", "models.gnn", "models.propagnet", "models.vae")}
+            "models.csa", "models.gnn", "models.propagnet", "models.vae", "parallel.mesh")}
         assert new <= set(sys.modules), new - set(sys.modules)
         print("OK", len([n for n in sys.modules if n.startswith(port.__name__)]))
     """)
@@ -107,15 +109,28 @@ def test_load_reference_state_rejects_a_changed_table():
 
 
 def test_unported_options_raise():
-    """The sharded (mesh) mode of both executors is not ported and raises;
-    every channel estimator is ported and runs."""
-    fe = config.ExecutorConfig(frontend=config.FrontendConfig(resample=(1, 2)))
-    with pytest.raises(NotImplementedError):
-        StreamExecutor(tx.tx_plan(2, 50), mesh=object(), exec_cfg=fe, device="cpu")
-    with pytest.raises(NotImplementedError):
-        StreamExecutor(tx.tx_plan(2, 50), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        AdaptiveStreamExecutor(mesh=object(), device="cpu")
+    """Every option is ported; the mesh refuses what the JAX package's
+    refuses: a span that leaves no trusted stride interval
+    (tests/test_executor.py:154-165) and a general-ratio front-end, which
+    runs in local mode only (the JAX package raises at the run); every
+    channel estimator runs."""
+    plan = tx.tx_plan(2, 50)
+    mesh = make_mesh(channels=1, time_shards=1)
+    too_small = sync.window_len(plan.n_sym) + HALO_LEFT      # span == halo total
+    with pytest.raises(ValueError, match="trusted"):
+        StreamExecutor(plan, mesh=mesh, device="cpu", exec_cfg=config.ExecutorConfig(
+            block_size=too_small, time_shards=1))
+    with pytest.raises(ValueError, match="trusted"):
+        AdaptiveStreamExecutor(mesh=mesh, device="cpu", exec_cfg=config.ExecutorConfig(
+            block_size=sync.window_len(0) - sync.MARGIN + HALO_LEFT))
+    StreamExecutor(plan, mesh=mesh, device="cpu", exec_cfg=config.ExecutorConfig(
+        block_size=too_small + 1, time_shards=1))
+    general = config.ExecutorConfig(frontend=config.FrontendConfig(resample=(3, 4)))
+    with pytest.raises(ValueError, match="general rational"):
+        StreamExecutor(plan, mesh=mesh, exec_cfg=general, device="cpu")
+    with pytest.raises(ValueError, match="general rational"):
+        AdaptiveStreamExecutor(mesh=mesh, exec_cfg=general, device="cpu")
+    StreamExecutor(plan, exec_cfg=general, device="cpu")            # local mode takes it
     h = torch.ones(1, 52, dtype=torch.complex64)
     for algo in config.ChannelEstimator:
         eq, csi = equalizer.equalize(torch.ones(1, 2, 64, dtype=torch.complex64), h, algo=algo)

@@ -27,6 +27,7 @@ from gnuradio_wifi_imagetransfer_tpu.models import somanet as jsomanet
 from gnuradio_wifi_imagetransfer_tpu.utils import trainer as jtrainer
 from gnuradio_wifi_imagetransfer_tpu_torch.models import layers, somanet
 from gnuradio_wifi_imagetransfer_tpu_torch.models import weights as wt
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel import make_mesh
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import trainer
 
 torch.set_num_threads(2)
@@ -270,8 +271,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         irs.IRSChannel(2, 1, 16).gen_nonlos(torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         sv.SVChannel(4, (0, 0, 0), (1, 1, 1), 2, 1).gen_awgn()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainer.Trainer(PortMini(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="'data'"):
+        trainer.Trainer(PortMini(), mesh=make_mesh(), device="cpu")
     with pytest.raises(ValueError, match="mode"):
         trainer.Trainer(PortMini(), device="cpu").train_step(
             np.zeros((U, B, 8, 8, 3), np.float32), np.zeros((U, 256), np.float32), mode="x")
