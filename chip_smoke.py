@@ -202,12 +202,19 @@ holds each hand-written kernel against its plain PyTorch version:
      process: ``demo_torch.py`` (48 x 48, the canvas bit for bit),
      ``tune_equalizer_torch.py`` (4 frames) and ``scaling_report_torch.py
      --procs 1`` (one NCCL rank);
+ 32. ``multichip_torch.py --procs N``, N = min(cards, 4), one NCCL rank a
+     card (a group of one on a one-card machine): the fixed mesh at the
+     bench shape and on JAX's dry-run layout, the adaptive and front-end
+     meshes and the data-parallel trainer at full width, every frame
+     bit-exact and equal to the local executors', the trainer within the
+     SMALL_* tolerances of the one-rank Trainer with equal replicas, rank
+     0's first K1 and K2 calls held; a rank that fails fails the phase;
      then one JSON line of kernel timings, bounds and launch counts (each
      kernel's ``radio_launches`` are those of phases 18 and 19, its
      ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
      ``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
-     ``zoo_launches`` phase 27's and ``mesh_launches`` those of phases
-     28-30).
+     ``zoo_launches`` phase 27's, ``mesh_launches`` those of phases
+     28-30 and ``multichip_launches`` rank 0's of each leg of phase 32).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -217,8 +224,9 @@ A). It builds the kernels into that checkout's own build directory.
 Launch counts are set to 0 just before each main-path run (7 to 13, each
 radio run of 18-19, the first run of each app phase, 20-21, the SV fading
 receives of 23, the training script of 25, the controller's run of 26,
-the zoo's runs of 27, each mesh run of 28-29 and the data-parallel
-trainer of 30) and read just after; launches made to compare or
+the zoo's runs of 27, each mesh run of 28-29, the data-parallel
+trainer of 30 and, on every rank of phase 32, each leg's checked run) and
+read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
 run none of the four kernels (their convolutions are cuDNN's, their
 products cuBLAS's), so their counts must stay 0.
@@ -345,6 +353,8 @@ ZOO_RTOL, ZOO_RTOL_DEEP, MAE_LOSS_RTOL = 1e-4, 5e-4, 1e-5
 # at small settings, each within SCRIPT_TIMEOUT seconds
 MESH_SUPERBLOCKS = 2
 SCRIPT_TUNE_FRAMES, SCRIPT_TIMEOUT = 4, 300
+# phase 32: multichip_torch.py's limit a world, in seconds
+MULTICHIP_TIMEOUT = 600
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -2487,6 +2497,50 @@ def script_phase(card: str) -> None:
           f"{json.dumps(sc)} ({card})")
 
 
+def multichip_phase(card: str) -> dict:
+    """Phase 32: multichip_torch.py --procs N, N = min(cards, 4), one NCCL
+    rank a card, in a process of its own; every leg must pass on every rank
+    (the script checks frames, records, launches and the trainer, and exits
+    non-zero if a rank fails), and rank 0 must have held K1 and K2 on each
+    executor leg. Returns rank 0's launches {leg: {kernel: n}}."""
+    import tempfile
+
+    import torch
+
+    n = min(torch.cuda.device_count(), 4)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "multichip.json")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(HERE, "multichip_torch.py"), "--procs",
+                            str(n), "--timeout", str(MULTICHIP_TIMEOUT), "--out", path],
+                           cwd=out, capture_output=True, text=True,
+                           timeout=MULTICHIP_TIMEOUT + 120)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"multichip_torch.py --procs {n} exited {p.returncode}: "
+                                 f"{p.stdout[-2000:]}{p.stderr[-3000:]}")
+        with open(path) as f:
+            report = json.load(f)
+    legs = report["worlds"][str(n)]
+    check(set(legs) == {"fixed", "fixed-jax-layout", "adaptive", "frontend", "train"},
+          f"multichip_torch.py: legs {sorted(legs)}")
+    for label, leg in legs.items():
+        if label == "train":
+            check(leg["replicas_equal"] and leg["loss_rel"] <= SMALL_LOSS_RTOL
+                  and not leg["grads_out_of_tolerance"], f"multichip train: {leg}")
+            continue
+        viterbi = "viterbi_decode" if label == "adaptive" else "viterbi_decode_many"
+        check(leg["good"] >= leg["sent"] and leg["equal_local"]
+              and {"sync_detect", viterbi} <= set(leg["held"]),
+              f"multichip {label}: {leg['good']} good of {leg['sent']}, equal to the local "
+              f"executor's {leg['equal_local']}, held {sorted(leg['held'])}")
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.split(" (", 1)[0] in legs or ln.startswith("world of")]
+    print(f"multichip_torch.py --procs {n} ({n} NCCL rank(s), one a card; {wall:.1f} s wall):\n  "
+          + "\n  ".join(lines))
+    return {label: leg["launches"][0] for label, leg in legs.items()}
+
+
 def main() -> None:
     import argparse
 
@@ -3072,6 +3126,9 @@ def main() -> None:
     # -- 31. the root scripts ------------------------------------------------
     script_phase(card)
 
+    # -- 32. the multi-card dry run, one NCCL rank a card ---------------------
+    multichip_launches = multichip_phase(card)
+
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
@@ -3122,7 +3179,8 @@ def main() -> None:
                     "app_launches": {k: v[name] for k, v in app_launches.items()},
                     "sv_launches": sv_launches[name], "train_launches": train_launches[name],
                     "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name],
-                    "mesh_launches": {k: v[name] for k, v in mesh_launches.items()}})
+                    "mesh_launches": {k: v[name] for k, v in mesh_launches.items()},
+                    "multichip_launches": {k: v[name] for k, v in multichip_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

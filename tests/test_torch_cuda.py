@@ -663,3 +663,30 @@ def test_masked_autoencoder_on_cuda_matches_cpu(dev):
     assert torch.equal(m_c, m_h) and torch.equal(i_c, i_h)
     torch.testing.assert_close(l_c, l_h, rtol=1e-4, atol=0)
     torch.testing.assert_close(p_c, p_h, rtol=0, atol=1e-4 * float(p_h.abs().max()))
+
+
+def test_multichip_dryrun_over_two_cards(dev, tmp_path):
+    """multichip_torch.py --procs 2 --dryrun, one NCCL rank a card: every
+    leg passes on both ranks (JAX's dry-run shapes), rank 0 holds K1 and
+    K2, and both ranks launched the detector."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (one NCCL rank a card)")
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, str(repo / "multichip_torch.py"), "--procs", "2",
+                        "--dryrun", "--timeout", "300", "--out", str(tmp_path / "mc.json")],
+                       cwd=tmp_path, env=env, capture_output=True, text=True, timeout=420)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    legs = json.loads(r.stdout.strip().splitlines()[-1])["worlds"]["2"]
+    for label in ("fixed", "adaptive", "frontend"):
+        leg = legs[label]
+        assert leg["mesh"] == [2, 1] and leg["good"] == leg["sent"] and leg["equal_local"]
+        assert "sync_detect" in leg["held"]
+        assert all(n["sync_detect"] == leg["steps"] for n in leg["launches"])
+    assert legs["train"]["replicas_equal"]

@@ -40,7 +40,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         import gnuradio_wifi_imagetransfer_tpu_torch as port
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
             importlib.import_module(m.name)
-        import chip_smoke, demo_torch, scaling_report_torch, tune_equalizer_torch
+        import chip_smoke, demo_torch, multichip_torch, scaling_report_torch, tune_equalizer_torch
         bad = [n for n, m in sys.modules.items() if m is not None and (
                n == "gnuradio_wifi_imagetransfer_tpu"
                or n.startswith("gnuradio_wifi_imagetransfer_tpu.")
