@@ -209,12 +209,17 @@ holds each hand-written kernel against its plain PyTorch version:
      bit-exact and equal to the local executors', the trainer within the
      SMALL_* tolerances of the one-rank Trainer with equal replicas, rank
      0's first K1 and K2 calls held; a rank that fails fails the phase;
-     then one JSON line of kernel timings, bounds and launch counts (each
-     kernel's ``radio_launches`` are those of phases 18 and 19, its
-     ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
-     ``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
-     ``zoo_launches`` phase 27's, ``mesh_launches`` those of phases
-     28-30 and ``multichip_launches`` rank 0's of each leg of phase 32).
+ 33. ``bench_torch.py`` in a process of its own with a 180 s budget over
+     its phases device_small, device, pipeline, adaptive:2, adaptive:mix
+     and frontend: exit code 0 (each phase checks its frames bit-exact and,
+     on the card, that K1 and K2 launched), a value above 0 and every one
+     of those phases in its result line, which is printed; then one JSON
+     line of kernel timings, bounds and launch counts (each kernel's
+     ``radio_launches`` are those of phases 18 and 19, its ``app_launches``
+     those of 20 and 21, ``sv_launches`` phase 23's, ``train_launches``
+     phase 25's, ``dqn_launches`` phase 26's, ``zoo_launches`` phase 27's,
+     ``mesh_launches`` those of phases 28-30 and ``multichip_launches``
+     rank 0's of each leg of phase 32).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -355,6 +360,9 @@ MESH_SUPERBLOCKS = 2
 SCRIPT_TUNE_FRAMES, SCRIPT_TIMEOUT = 4, 300
 # phase 32: multichip_torch.py's limit a world, in seconds
 MULTICHIP_TIMEOUT = 600
+# phase 33: bench_torch.py's phases and its budget in seconds
+BENCH_PHASES = ("device_small", "device", "pipeline", "adaptive:2", "adaptive:mix", "frontend")
+BENCH_BUDGET_S = 180
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -2541,6 +2549,35 @@ def multichip_phase(card: str) -> dict:
     return {label: leg["launches"][0] for label, leg in legs.items()}
 
 
+def bench_phase(card: str) -> None:
+    """Phase 33: bench_torch.py over BENCH_PHASES in a process of its own,
+    with GWT_BENCH_BUDGET_S=BENCH_BUDGET_S: exit code 0, a value above 0,
+    every one of the phases there (each checks its frames bit-exact and
+    its K1 and K2 launches); prints its result line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py"),
+                        "--phases=" + ",".join(BENCH_PHASES)],
+                       cwd=HERE, env=dict(os.environ, GWT_BENCH_BUDGET_S=str(BENCH_BUDGET_S)),
+                       capture_output=True, text=True, timeout=BENCH_BUDGET_S + 60)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"bench_torch.py exited {p.returncode}: {p.stdout[-2000:]}"
+                             f"{p.stderr[-3000:]}")
+    try:
+        line = p.stdout.strip().splitlines()[-1]
+        res = json.loads(line)
+    except (IndexError, ValueError):
+        fail(f"bench_torch.py printed no result line: {p.stdout[-2000:]}")
+    missing = [k for k in BENCH_PHASES if k not in res["detail"]["phases"]]
+    check(res["value"] > 0 and not missing,
+          f"bench_torch.py: value {res['value']}, phases missing {missing}, skipped "
+          f"{res['detail']['skipped']}")
+    print(f"bench_torch.py --phases={','.join(BENCH_PHASES)} ({wall:.1f} s wall; {card}): "
+          f"{res['value']:.1f} {res['unit']}; result line: {line}")
+
+
 def main() -> None:
     import argparse
 
@@ -3128,6 +3165,9 @@ def main() -> None:
 
     # -- 32. the multi-card dry run, one NCCL rank a card ---------------------
     multichip_launches = multichip_phase(card)
+
+    # -- 33. the bench, bench_torch.py ----------------------------------------
+    bench_phase(card)
 
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
