@@ -213,13 +213,28 @@ holds each hand-written kernel against its plain PyTorch version:
      its phases device_small, device, pipeline, adaptive:2, adaptive:mix
      and frontend: exit code 0 (each phase checks its frames bit-exact and,
      on the card, that K1 and K2 launched), a value above 0 and every one
-     of those phases in its result line, which is printed; then one JSON
-     line of kernel timings, bounds and launch counts (each kernel's
-     ``radio_launches`` are those of phases 18 and 19, its ``app_launches``
-     those of 20 and 21, ``sv_launches`` phase 23's, ``train_launches``
-     phase 25's, ``dqn_launches`` phase 26's, ``zoo_launches`` phase 27's,
-     ``mesh_launches`` those of phases 28-30 and ``multichip_launches``
-     rank 0's of each leg of phase 32).
+     of those phases in its result line, which is printed;
+ 34. the PER waterfall of tests/test_waterfall.py: ``rx.decode_aligned``
+     on the card over AWGN (MCS 0-7, 16 frames of 100 bytes, the test's
+     SNRs and one point in each MCS's falling edge) and over its 3-tap
+     wandering fading (16 frames of 400 bytes at MCS 5, LS/LMS/COMB/STA at
+     15, 25 and 35 dB), noise drawn in numpy; each decode launches K2 once
+     and every call is held bit-exact; every point within one frame of the
+     CPU path on the same arrays, and the test's assertions on the card's
+     table;
+ 35. the Mode-2 soak of tests/test_soak.py at full scale: the port's
+     SenderApp (kodim07 at 300 x 300, 2 700 pieces a lap, 2 ms spacing)
+     -> a relay dropping 8 % of the datagrams -> LoopbackRadio (MCS 3,
+     22 dB, batch 16) on the card -> ReceiverApp, until the canvas is
+     bit-exact (600 s at most), no "dropped" line, K1 and K2 launched and
+     their first calls held; the record of docs/soak_mode2.md is printed;
+then one JSON line of kernel timings, bounds and launch counts (each
+kernel's ``radio_launches`` are those of phases 18 and 19, its
+``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
+``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
+``zoo_launches`` phase 27's, ``mesh_launches`` those of phases 28-30,
+``multichip_launches`` rank 0's of each leg of phase 32,
+``waterfall_launches`` phase 34's and ``soak_launches`` phase 35's).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -230,7 +245,8 @@ Launch counts are set to 0 just before each main-path run (7 to 13, each
 radio run of 18-19, the first run of each app phase, 20-21, the SV fading
 receives of 23, the training script of 25, the controller's run of 26,
 the zoo's runs of 27, each mesh run of 28-29, the data-parallel
-trainer of 30 and, on every rank of phase 32, each leg's checked run) and
+trainer of 30, on every rank of phase 32, each leg's checked run, the
+card's decodes of 34 and the soak of 35) and
 read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
 run none of the four kernels (their convolutions are cuDNN's, their
@@ -363,6 +379,26 @@ MULTICHIP_TIMEOUT = 600
 # phase 33: bench_torch.py's phases and its budget in seconds
 BENCH_PHASES = ("device_small", "device", "pipeline", "adaptive:2", "adaptive:mix", "frontend")
 BENCH_BUDGET_S = 180
+# phase 34: the PER waterfall of tests/test_waterfall.py, genie-aligned
+# through rx.decode_aligned. AWGN: WATERFALL_FRAMES frames of
+# WATERFALL_PSDU bytes an MCS at the SNRs of tests/test_waterfall.py:38-57
+# and one point in each MCS's falling edge; fading: :80's table at full
+# size (its 3-tap wandering channel). Noise is drawn in numpy, one
+# unit-power draw a table scaled to each SNR.
+WATERFALL_FRAMES = 16
+WATERFALL_PSDU = 100
+# (the edge points: where the port's CPU path, 1 dB apart from -3 to 30 dB,
+# loses 3 to 10 of the 16 frames)
+WATERFALL_SNRS = {0: (-2.0, 1.0, 8.0, 10.0), 1: (3.0,), 2: (4.0,),
+                  3: (2.0, 4.0, 6.0, 10.0, 14.0, 18.0), 4: (9.0,), 5: (12.0,), 6: (16.0,),
+                  7: (10.0, 14.0, 17.0, 26.0)}
+FADING = {"frames": 16, "psdu": 400, "mcs": 5, "snrs": (15.0, 25.0, 35.0),
+          "algos": ("LS", "LMS", "COMB", "STA")}
+# phase 35: tests/test_soak.py at full scale: kodim07 at 300 x 300 (2 700
+# pieces a lap), 8 % of the sender's datagrams dropped, the canvas bit-exact
+SOAK_SIZE = 300
+SOAK_DROP = 0.08
+SOAK_TIMEOUT_S = 600.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -579,8 +615,7 @@ def hold_recorded(calls, label: str) -> dict:
     out = {}
 
     def note(name, err, shape):
-        e, shapes = out.get(name, (0.0, []))
-        out[name] = (max(e, err), shapes + [shape])
+        merge_held(out, {name: (err, [shape])})
 
     for args, kw in calls.get("sync_detect", []):
         e_cfo, e_ratio, _ = hold_detect(args, f"{label}: {tuple(args[0].shape)}, K {args[1]}")
@@ -604,6 +639,14 @@ def hold_recorded(calls, label: str) -> dict:
                          f"{args[1]}/{args[2]}: {e:.3g} (2e-4)")
         note("polyphase_resample", e, tuple(args[0].shape))
     return out
+
+
+def merge_held(held: dict, out: dict) -> None:
+    """Adds a ``hold_recorded`` result to ``held`` (the largest error, the
+    shapes appended), kernel by kernel."""
+    for name, (e, shapes) in out.items():
+        e0, s0 = held.get(name, (0.0, []))
+        held[name] = (max(e0, e), s0 + shapes)
 
 
 def device_profile(fn):
@@ -824,9 +867,7 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
               and buckets == n_buckets and all(launches[k] == v for k, v in also),
               f"{label}: launches {launches} for {steps} steps and {buckets} buckets "
               f"(expected {n_buckets})")
-        for name, (e, shapes) in hold_recorded(calls, label).items():
-            e0, s0 = held.get(name, (0.0, []))
-            held[name] = (max(e0, e), s0 + shapes)
+        merge_held(held, hold_recorded(calls, label))
         return recs, launches, dt, calls
 
     # -- 12. adaptive executor at the bench's shape ------------------------
@@ -1190,11 +1231,6 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
         print_profile(f"{label}, {what} ({card})", prof)
         inputs[label] = {k: max(v, key=input_numel) for k, v in calls.items() if v}
 
-    def note(out):
-        for name, (e, shapes) in out.items():
-            e0, s0 = held.get(name, (0.0, []))
-            held[name] = (max(e0, e), s0 + shapes)
-
     def check_launches(label, launches, need):
         check(all(launches[k] > 0 for k in need)
               and all(launches[k] == 0 for k in ("sync_stats", "fir_filter",
@@ -1211,7 +1247,7 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
     passes = _Passes(radio, capture=RADIO_PROFILE_PASS)
     wall, t_send, launches, out = run("radio-loopback", [radio], radio.in_port, pieces,
                                       spacing["radio-loopback"])
-    note(out)
+    merge_held(held, out)
     check_launches("radio-loopback", launches, ("sync_detect", "viterbi_decode_many"))
     batches = len(passes.seconds)
     print(f"radio-loopback: LoopbackRadio(mcs {radio.mcs}, snr {radio.snr_db} dB, batch "
@@ -1247,7 +1283,7 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
     wall, t_send, launches, out = run("radio-loopback retune", [retune], retune.in_port,
                                       pieces[:half], spacing["radio-loopback"],
                                       then=second_part)
-    note(out)
+    merge_held(held, out)
     check_launches("radio-loopback retune", launches, ("sync_detect", "viterbi_decode_many"))
     check(retune.constellation.points().shape[0] > 0 and retune.spectrum.psd_db().max() > -200
           and np.isfinite(retune.snr_probe.snr_db()), "radio-loopback retune: probes not filled")
@@ -1271,7 +1307,7 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
     wall, t_send, launches, out = run("radio-split", [rxr, txr], txr.in_port, pieces,
                                       spacing["radio-split"])
     in_flight.close()
-    note(out)
+    merge_held(held, out)
     check_launches("radio-split", launches,
                    ("sync_detect", "viterbi_decode", "viterbi_decode_many"))
     check(rxr.constellation.points().shape[0] > 0 and rxr.spectrum.psd_db().max() > -200
@@ -1489,9 +1525,7 @@ def app_phases(dev, card: str, reset, counts, held: dict) -> tuple[dict, dict, o
               f"{label}: launches {launches} (need sync_detect and viterbi_decode_many > 0, "
               f"and no dense K1, K3 or K4)")
         out = hold_recorded(calls, label)
-        for name, (e, shapes) in out.items():
-            e0, s0 = held.get(name, (0.0, []))
-            held[name] = (max(e0, e), s0 + shapes)
+        merge_held(held, out)
         return wall, laps, launches, out
 
     @contextlib.contextmanager
@@ -1734,9 +1768,7 @@ def sv_phase(dev, card: str, reset, counts, held: dict) -> dict:
                   if k not in ("sync_detect", "viterbi_decode_many")),
           f"sv fading: launches {launches} for {SV_TRIALS} receives")
     out = hold_recorded(calls, "sv fading")
-    for name, (e, shapes) in out.items():
-        e0, s0 = held.get(name, (0.0, []))
-        held[name] = (max(e0, e), s0 + shapes)
+    merge_held(held, out)
     power = [np.round((h.abs() ** 2).cpu().numpy(), 3).tolist() for h in taps]
     print(f"sv fading (MCS {SV_MCS}, {SV_LEN} bytes, {SV_TRIALS} realisations of 6 taps, "
           f"{SV_SNR_DB:g} dB, offset {SV_FO:g}): {sum(decoded)}/{SV_FRAMES * SV_TRIALS} frames "
@@ -2248,11 +2280,6 @@ def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[di
     held: dict = {}
     launches: dict = {}
 
-    def hold(calls, label):
-        for name, (e, shapes) in hold_recorded(calls, label).items():
-            e0, s0 = held.get(name, (0.0, []))
-            held[name] = (max(e0, e), s0 + shapes)
-
     def good(records):
         return {(r.channel, r.global_start, r.rate_idx, r.psdu.tobytes())
                 for r in records if r.parity_ok}
@@ -2297,7 +2324,7 @@ def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[di
               and all(lx[k] == 0 for k in ("sync_stats", "viterbi_decode", "fir_filter",
                                            "polyphase_resample")),
               f"mesh fixed: launches {lx} for {steps} steps")
-        hold(calls, "mesh fixed")
+        merge_held(held, hold_recorded(calls, "mesh fixed"))
         local = StreamExecutor(plan, exec_cfg=cfg, device=dev).run(stream)
         check(good(local) == got, f"mesh fixed: {len(got)} good records, the local executor's "
                                   f"{len(good(local))} differ")
@@ -2346,7 +2373,7 @@ def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[di
               and la["viterbi_decode_many"] == len(calls["viterbi_decode_many"]) >= 8
               and la["sync_stats"] == 0,
               f"mesh adaptive: launches {la} for {steps} steps")
-        hold(calls, "mesh adaptive")
+        merge_held(held, hold_recorded(calls, "mesh adaptive"))
         alocal = AdaptiveStreamExecutor(exec_cfg=acfg, device=dev).run(x)
         check(good(alocal) == good(recs), "mesh adaptive: good records differ from the local "
                                           "executor's")
@@ -2374,7 +2401,7 @@ def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[di
               * FRAMES_PER_BLOCK * TIME_BLOCKS,
               f"mesh front-end: {len(good(frecs))} good records, phase 11's local "
               f"{len(good(ppm_records))} differ")
-        hold(calls, "mesh front-end")
+        merge_held(held, hold_recorded(calls, "mesh front-end"))
         print(f"mesh front-end (resample=(1, 2), ppm=40, {CHANNELS} x {TIME_BLOCKS} cells, input "
               f"{cap_ppm.shape}): {len(good(frecs))} frames bit-exact, good records equal phase "
               f"11's local run; {wall:.2f} s wall; launches {json.dumps(lf)} ({card})")
@@ -2576,6 +2603,339 @@ def bench_phase(card: str) -> None:
           f"{res['detail']['skipped']}")
     print(f"bench_torch.py --phases={','.join(BENCH_PHASES)} ({wall:.1f} s wall; {card}): "
           f"{res['value']:.1f} {res['unit']}; result line: {line}")
+
+
+def unit_noise(shape, seed: int) -> np.ndarray:
+    """Complex white Gaussian noise of unit power (per-component std
+    1/sqrt(2)), complex128, from numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2.0)
+
+
+def at_snr(bursts: np.ndarray, noise: np.ndarray, snr_db: float) -> np.ndarray:
+    """Unit-power bursts plus noise of voltage 10^(-snr/20), complex64
+    (tests/test_waterfall.py:29-31's convention)."""
+    return (bursts + 10 ** (-snr_db / 20) * noise).astype(np.complex64)
+
+
+def fading_burst(burst: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """tests/test_waterfall.py:61's slowly time-varying 3-tap channel, per
+    sample: tap gains wander smoothly with periods of about 80-130 symbols."""
+    n = burst.size
+    delays = np.array([0, 3, 7])
+    g0 = np.array([1.0, 0.45, 0.3]) * np.exp(2j * np.pi * rng.random(3))
+    periods = np.array([80.0, 102.4, 128.8]) * 80.0        # symbols -> samples
+    t = np.arange(n)[:, None]
+    wob = np.exp(1j * (2 * np.pi * t / periods + 2 * np.pi * rng.random(3)))
+    gains = g0 * (1 + 0.5 * (wob - wob[0]))                # (n, 3); H(0)=H0
+    y = np.zeros(n, dtype=np.complex128)
+    for d, gd in zip(delays, gains.T):
+        y[d:] += gd[d:] * burst[: n - d]
+    return y.astype(np.complex64)
+
+
+def waterfall_inputs(transmit, snrs=WATERFALL_SNRS, fading=FADING) -> dict:
+    """The waterfall's numpy inputs from seeds: the frames (rng 0, as
+    tests/test_waterfall.py), their bursts by ``transmit(psdu, mcs, seeds)``
+    (numpy complex64, scrambler seeds 1..n) and unit noise.
+    {"awgn": {mcs: (psdu, bursts, noise)}, "fading": (psdu, faded, noise)}."""
+    out = {"awgn": {}}
+    for mcs in snrs:
+        psdu = np.random.default_rng(0).integers(0, 256, (WATERFALL_FRAMES, WATERFALL_PSDU),
+                                                 dtype=np.uint8)
+        bursts = transmit(psdu, mcs, np.arange(1, WATERFALL_FRAMES + 1))
+        out["awgn"][mcs] = (psdu, bursts, unit_noise(bursts.shape, 1000 + mcs))
+    n = fading["frames"]
+    psdu = np.random.default_rng(0).integers(0, 256, (n, fading["psdu"]), dtype=np.uint8)
+    bursts = transmit(psdu, fading["mcs"], np.arange(1, n + 1))
+    faded = np.stack([fading_burst(b, np.random.default_rng(100 + i))
+                      for i, b in enumerate(bursts)])
+    out["fading"] = (psdu, faded, unit_noise(faded.shape, 7))
+    return out
+
+
+def waterfall_tables(inputs: dict, decode, snrs=WATERFALL_SNRS, fading=FADING) -> dict:
+    """``decode(y, mcs, psdu_len, algo)`` (a dict of numpy arrays with
+    "psdu") at every point: {("awgn", mcs, snr) and ("fading", algo, snr):
+    its result}. AWGN points are equalized by LS."""
+    out = {}
+    for mcs, points in snrs.items():
+        psdu, bursts, noise = inputs["awgn"][mcs]
+        for snr in points:
+            out[("awgn", mcs, snr)] = decode(at_snr(bursts, noise, snr), mcs, psdu.shape[1], "LS")
+    psdu, faded, noise = inputs["fading"]
+    for algo in fading["algos"]:
+        for snr in fading["snrs"]:
+            out[("fading", algo, snr)] = decode(at_snr(faded, noise, snr), fading["mcs"],
+                                                psdu.shape[1], algo)
+    return out
+
+
+def frame_errors(tables: dict, inputs: dict) -> dict:
+    """{point: (frames,) bool, the frames whose bytes differ from those sent}."""
+    def sent(key):
+        return inputs["awgn"][key[1]][0] if key[0] == "awgn" else inputs["fading"][0]
+
+    return {k: (v["psdu"] != sent(k)).any(axis=1) for k, v in tables.items()}
+
+
+def waterfall_failures(per: dict) -> list[str]:
+    """tests/test_waterfall.py's assertions on a table of PERs: the
+    regimes, the rate ladder, monotone PER over SNR (MCS 3), and, where
+    the table has its fading points, LS's floor with LMS and STA under it
+    and COMB near it. Returns the assertions that fail."""
+    bad = []
+
+    def need(cond, what):
+        if not cond:
+            bad.append(what)
+
+    for mcs, ok, dead in ((0, 8.0, -2.0), (3, 14.0, 4.0), (7, 26.0, 14.0)):
+        if ("awgn", mcs, ok) in per:
+            need(per[("awgn", mcs, ok)] == 0.0, f"MCS{mcs} clean at {ok} dB")
+            need(per[("awgn", mcs, dead)] > 0.5, f"MCS{mcs} fails at {dead} dB")
+    if ("awgn", 7, 10.0) in per:
+        need(per[("awgn", 0, 10.0)] == 0.0 and per[("awgn", 7, 10.0)] == 1.0,
+             "the rate ladder at 10 dB: MCS0 clean, MCS7 dead")
+    ladder = [per.get(("awgn", 3, s)) for s in (2.0, 6.0, 10.0, 14.0, 18.0)]
+    if None not in ladder:
+        need(all(a >= b - 0.07 for a, b in zip(ladder, ladder[1:]))
+             and ladder[0] > 0.5 and ladder[-1] == 0.0, f"MCS3 monotone over SNR: {ladder}")
+    if ("fading", "LS", 35.0) in per:
+        ls, lms, sta, comb = (per[("fading", a, 35.0)] for a in ("LS", "LMS", "STA", "COMB"))
+        need(ls >= 0.5, f"LS's fading floor at 35 dB {ls} >= 0.5")
+        need(lms <= ls - 0.3, f"LMS {lms} under LS {ls} - 0.3 at 35 dB")
+        need(sta <= ls - 0.25, f"STA {sta} under LS {ls} - 0.25 at 35 dB")
+        need(comb >= ls - 0.15, f"COMB {comb} near LS {ls} at 35 dB")
+        need(lms <= per[("fading", "LMS", 15.0)], "LMS at 35 dB no worse than at 15 dB")
+    return bad
+
+
+def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
+    """Phase 34: the PER waterfall on the card. The port's TX makes the
+    bursts on the CPU (``waterfall_inputs``); ``rx.decode_aligned`` decodes
+    every point on the card, then on the CPU path from the same arrays.
+    Each decode launches K2 once (``viterbi_decode_many``: the SIGNAL
+    trellis and the payload's), and every such call is held bit-exact
+    against its plain version (into ``held``). Fails where K2 did not
+    launch, a held call differs, a point's frame errors differ from the CPU
+    path's by more than one frame, or test_waterfall.py's assertions fail
+    on the card's table. Prints both tables, every frame where the two
+    differ, and the launches. Returns the launches."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, tx
+
+    def transmit(psdu, mcs, seeds):
+        return tx.transmit(psdu, mcs, scrambler_seed=torch.as_tensor(seeds),
+                           device="cpu").numpy()
+
+    def on(device):
+        def decode(y, mcs, psdu_len, algo):
+            r = rx.decode_aligned(torch.from_numpy(y).to(device), tx.tx_plan(mcs, psdu_len),
+                                  start=0, algo=ChannelEstimator[algo])
+            return {"psdu": r.psdu.cpu().numpy()}
+        return decode
+
+    inputs = waterfall_inputs(transmit)
+    reset()
+    with recording((k2, "viterbi_decode_many")) as calls:
+        t0 = time.perf_counter()
+        card_tables = waterfall_tables(inputs, on(dev))
+        t_card = time.perf_counter() - t0
+        launches = counts()
+    t0 = time.perf_counter()
+    cpu_tables = waterfall_tables(inputs, on("cpu"))
+    t_cpu = time.perf_counter() - t0
+    points = len(card_tables)
+    check(launches["viterbi_decode_many"] == points
+          and all(v == 0 for k, v in launches.items() if k != "viterbi_decode_many"),
+          f"waterfall: launches {launches} for {points} decodes (K2's viterbi_decode_many "
+          f"once a decode, no other kernel)")
+    out = hold_recorded(calls, "waterfall")
+    merge_held(held, out)
+    timed = []                   # K2 at an AWGN decode's shapes and at a fading decode's
+    for args, kw in (calls["viterbi_decode_many"][0],
+                     max(calls["viterbi_decode_many"], key=input_numel)):
+        ms = cuda_ms(lambda: k2.viterbi_decode_many(*args, **kw), 20)
+        steps = sum(v.shape[0] * v.shape[1] for v in args[0])
+        timed.append(f"{[tuple(v.shape) for v in args[0]]} {ms:.4f} ms (bound "
+                     f"{bound_str(viterbi_bound(steps))})")
+    card_err, cpu_err = frame_errors(card_tables, inputs), frame_errors(cpu_tables, inputs)
+    rows, apart, far = [], [], []
+    for key in card_tables:
+        n_card, n_cpu = int(card_err[key].sum()), int(cpu_err[key].sum())
+        rows.append(f"{key[0]} {key[1]} {key[2]:g} dB: {n_card}/{card_err[key].size} "
+                    f"(CPU {n_cpu})")
+        differ = np.flatnonzero((card_tables[key]["psdu"] != cpu_tables[key]["psdu"]).any(1))
+        if differ.size:
+            apart.append(f"{key}: frames {differ.tolist()} decode differently (card errors "
+                         f"{card_err[key][differ].tolist()}, CPU {cpu_err[key][differ].tolist()})")
+        if abs(n_card - n_cpu) > 1:
+            far.append(key)
+    per = {k: float(v.mean()) for k, v in card_err.items()}
+    bad = waterfall_failures(per)
+    print(f"waterfall: {points} points of {WATERFALL_FRAMES} x {WATERFALL_PSDU}-byte frames "
+          f"(AWGN, LS) and {FADING['frames']} x {FADING['psdu']}-byte MCS {FADING['mcs']} "
+          f"frames over 3-tap fading; frame errors on the card (CPU path):\n  "
+          + "\n  ".join(rows))
+    print("waterfall: frames where the card and the CPU path differ: "
+          + ("; ".join(apart) if apart else "none"))
+    check(not far, f"waterfall: points more than one frame from the CPU path: {far}")
+    check(not bad, f"waterfall: test_waterfall.py's assertions fail on the card: {bad}")
+    kept = json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})
+    print(f"waterfall: test_waterfall.py's assertions hold on the card's table; card {t_card:.2f}"
+          f" s, CPU path {t_cpu:.2f} s for the {points} decodes; launches "
+          f"{json.dumps(launches)}; held {kept}; viterbi_decode_many on {'; on '.join(timed)} "
+          f"(CUDA events; {card})")
+    return launches
+
+
+class LossyRelay:
+    """UDP forwarder dropping SOAK_DROP of the datagrams, drawn from
+    ``np.random.default_rng(0)`` (tests/test_soak.py's): loss injected
+    between the sender and the radio, independent of the PHY's own CRC
+    screen."""
+
+    def __init__(self, dst_port: int):
+        import socket
+        import threading
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self.dst = ("127.0.0.1", dst_port)
+        self.rng = np.random.default_rng(0)
+        self.dropped = 0
+        self.forwarded = 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self._t.start()
+        return self
+
+    def _run(self):
+        import socket
+
+        out = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        while not self._stop.is_set():
+            try:
+                data, _ = self.sock.recvfrom(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            if self.rng.random() < SOAK_DROP:
+                self.dropped += 1
+                continue
+            out.sendto(data, self.dst)
+            self.forwarded += 1
+        out.close()
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=2.0)
+        self.sock.close()
+
+
+def run_soak(device, size: int = SOAK_SIZE, timeout_s: float = SOAK_TIMEOUT_S) -> dict:
+    """tests/test_soak.py's Mode-2 soak through the port: kodim07 resized
+    to size x size, the port's SenderApp (AppConfig, 2 ms piece spacing,
+    re-sent in laps) -> LossyRelay (SOAK_DROP of the datagrams) ->
+    LoopbackRadio (MCS 3, 22 dB, batch 16, on ``device``) -> ReceiverApp,
+    until the canvas equals the resized image or ``timeout_s`` passes.
+    Returns the record of docs/soak_mode2.md (``bit_exact`` False on a
+    timeout) with the relay's and the radio's counts."""
+    from PIL import Image
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import AppConfig
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime.apps import ReceiverApp, SenderApp
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime.bridge import LoopbackRadio
+
+    img = np.asarray(Image.open(os.path.join(HERE, "assets", "kodim07.png")).convert("RGB"))
+    expect = np.asarray(Image.fromarray(img).resize((size, size)), dtype=np.uint8)
+    recv = ReceiverApp(cfg=AppConfig(image_size=(size, size)), http_port=0, rx_port=0)
+    radio = LoopbackRadio(in_port=0, out_port=recv.rx_port, mcs=3, snr_db=22.0, batch=16,
+                          device=device)
+    relay = LossyRelay(dst_port=radio.in_port)
+    send = SenderApp(cfg=AppConfig(image_size=(size, size), tx_port=relay.port,
+                                   piece_interval_s=0.002), http_port=0)
+    recv.start()
+    radio.start()
+    relay.start()
+    t0 = time.monotonic()
+    converged = None
+    try:
+        send.send_image(img)
+        while time.monotonic() - t0 < timeout_s:
+            if np.array_equal(recv.canvas, expect):
+                converged = time.monotonic() - t0
+                break
+            time.sleep(0.05)
+        laps = send.sender.laps + 1
+    finally:
+        send.stop()
+        relay.stop()
+        radio.stop()
+        recv.stop()
+    wall = time.monotonic() - t0
+    return {
+        "image": f"kodim07 {size}x{size}",
+        "pieces_per_lap": size * size * 3 // 100,
+        "laps_started": laps,
+        "injected_drop_rate": SOAK_DROP,
+        "relay_dropped": relay.dropped,
+        "relay_forwarded": relay.forwarded,
+        "radio_datagrams_in": radio.stats["datagrams_in"],
+        "pieces_decoded": recv.pieces_received,
+        "pieces_per_s": recv.pieces_received / (converged or wall),
+        "frames_crc_fail": radio.stats["frames_crc_fail"],
+        "converged_s": converged,
+        "bit_exact": converged is not None,
+        "pixels_equal": int((recv.canvas == expect).all(axis=-1).sum()),
+    }
+
+
+def soak_phase(dev, card: str, reset, counts, held: dict) -> dict:
+    """Phase 35: ``run_soak`` at full scale on the card (SOAK_SIZE, 8 %
+    loss, SOAK_TIMEOUT_S), stdout captured while it runs. Fails where the
+    canvas is not bit-exact in time, a "dropped" line was printed, or K1
+    (sync_detect) or K2 (viterbi_decode_many) did not launch; the first
+    RADIO_HELD calls of each are held against their plain versions (into
+    ``held``). Prints the record. Returns the launches."""
+    import io
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+
+    log = io.StringIO()
+    reset()
+    with recording((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"),
+                   keep=RADIO_HELD) as calls, contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        rec = run_soak(dev)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    print(log.getvalue(), end="")
+    check("dropped" not in log.getvalue(), f"soak: the radio or the receiver dropped a batch "
+                                           f"or piece:\n{log.getvalue()[-2000:]}")
+    check(rec["bit_exact"], f"soak: the canvas is not bit-exact after {SOAK_TIMEOUT_S:.0f} s: "
+                            f"{json.dumps(rec)}")
+    check(launches["sync_detect"] > 0 and launches["viterbi_decode_many"] > 0
+          and all(launches[k] == 0 for k in ("sync_stats", "fir_filter", "polyphase_resample")),
+          f"soak: launches {launches} (need sync_detect and viterbi_decode_many > 0, and no "
+          f"dense K1, K3 or K4)")
+    out = hold_recorded(calls, "soak")
+    merge_held(held, out)
+    print(f"soak (tests/test_soak.py at full scale, port's SenderApp -> 8 % lossy relay -> "
+          f"LoopbackRadio(mcs 3, 22 dB, batch 16) on the card -> ReceiverApp): "
+          f"{json.dumps(rec)}; phase wall {wall:.1f} s; launches {json.dumps(launches)}; held "
+          f"{json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} ({card})")
+    return launches
 
 
 def main() -> None:
@@ -3156,9 +3516,7 @@ def main() -> None:
     # -- 28-30. the (channel, time) mesh and the data-parallel trainer ------
     mesh_launches, mesh_held = mesh_phases(dev, card, reset, counts, cap_ppm, ppm_records)
     del cap_ppm, ppm_records
-    for name, (e, shapes) in mesh_held.items():
-        e0, s0 = held.get(name, (0.0, []))
-        held[name] = (max(e0, e), s0 + shapes)
+    merge_held(held, mesh_held)
 
     # -- 31. the root scripts ------------------------------------------------
     script_phase(card)
@@ -3168,6 +3526,10 @@ def main() -> None:
 
     # -- 33. the bench, bench_torch.py ----------------------------------------
     bench_phase(card)
+
+    # -- 34-35. the PER waterfall and the Mode-2 soak --------------------------
+    waterfall_launches = waterfall_phase(dev, card, reset, counts, held)
+    soak_launches = soak_phase(dev, card, reset, counts, held)
 
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
@@ -3220,7 +3582,9 @@ def main() -> None:
                     "sv_launches": sv_launches[name], "train_launches": train_launches[name],
                     "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name],
                     "mesh_launches": {k: v[name] for k, v in mesh_launches.items()},
-                    "multichip_launches": {k: v[name] for k, v in multichip_launches.items()}})
+                    "multichip_launches": {k: v[name] for k, v in multichip_launches.items()},
+                    "waterfall_launches": waterfall_launches[name],
+                    "soak_launches": soak_launches[name]})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import sys
 import time
 
@@ -65,16 +64,14 @@ def main():
         img = np.stack([255 * yy, 255 * xx, 127 + 127 * np.sin(8 * np.pi * (yy + xx))],
                        axis=-1).astype(np.uint8)
 
-    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
-        s.bind(("127.0.0.1", 0))
-        out_port = s.getsockname()[1]
-
+    # the receiver binds its UDP port first and the radio sends there, so
+    # no other process can take the port in between
+    receiver = ReceiverApp(cfg=AppConfig(image_size=(args.size, args.size)), rx_port=0).start()
     print(f"starting loopback radio (MCS {args.mcs}, {args.snr:.0f} dB SNR, {device})...")
-    radio = LoopbackRadio(in_port=0, out_port=out_port, mcs=args.mcs, snr_db=args.snr,
+    radio = LoopbackRadio(in_port=0, out_port=receiver.rx_port, mcs=args.mcs, snr_db=args.snr,
                           batch=4, device=device).start()
     cfg = AppConfig(tx_port=radio.in_port, image_size=(args.size, args.size),
                     piece_interval_s=0.005)
-    receiver = ReceiverApp(cfg=cfg, rx_port=out_port).start()
     sender = SenderApp(cfg=cfg)
     sender.start()
     n_pieces = (args.size // 10) * (args.size // 10) * 3

@@ -54,8 +54,23 @@ def demap_llr(symbols: torch.Tensor, mcs: int, csi: torch.Tensor | None = None) 
     return llr.reshape(symbols.shape[:-1] + (symbols.shape[-1] * n_bpsc,))
 
 
+def _nearest(symbols: torch.Tensor, n_bpsc: int) -> torch.Tensor:
+    """Index of the nearest constellation point per symbol; a symbol
+    halfway between points takes the first."""
+    points = _points(n_bpsc, symbols.device)
+    return torch.argmin((symbols[..., None] - points).abs() ** 2, dim=-1)
+
+
 def decide(symbols: torch.Tensor, mcs: int) -> torch.Tensor:
     """Nearest constellation point per symbol (hard decision), same shape."""
-    points = _points(int(params.MCS_N_BPSC[mcs]), symbols.device)
-    idx = torch.argmin((symbols[..., None] - points).abs() ** 2, dim=-1)
-    return points[idx]
+    n_bpsc = int(params.MCS_N_BPSC[mcs])
+    return _points(n_bpsc, symbols.device)[_nearest(symbols, n_bpsc)]
+
+
+def demap_hard(symbols: torch.Tensor, mcs: int) -> torch.Tensor:
+    """Nearest-point hard decisions -> (..., n*n_bpsc) bits (uint8); a
+    symbol halfway between points takes the first, as ``decide``."""
+    n_bpsc = int(params.MCS_N_BPSC[mcs])
+    pbits = torch.as_tensor(_point_bits(n_bpsc), device=symbols.device)
+    bits = pbits[_nearest(symbols, n_bpsc)]                       # (..., n, n_bpsc)
+    return bits.reshape(symbols.shape[:-1] + (symbols.shape[-1] * n_bpsc,)).to(torch.uint8)
