@@ -288,13 +288,13 @@ class _Worker:
         return (time.perf_counter() - t0) * 1e3 / k
 
     def event_ms(self, fn, reps: int) -> float:
-        """chip_smoke.cuda_ms on the card (CUDA events, the host queued
+        """The port's ``cuda_ms`` on the card (CUDA events, the host queued
         behind a device sleep); the host clock on the CPU."""
         if not self.card:
             return self.host_ms(fn, reps)
-        import chip_smoke
+        from gnuradio_wifi_imagetransfer_tpu_torch.utils.tracing import cuda_ms
 
-        return chip_smoke.cuda_ms(fn, reps)
+        return cuda_ms(fn, reps)
 
     def reset(self) -> None:
         for k in self.kernels:
@@ -373,11 +373,11 @@ class _Worker:
         samples = c * t * block
         measured = {"step_ms": stats(ms), "msps": stats([samples / m / 1e3 for m in ms])}
         if profile and self.card:
-            import chip_smoke
+            from gnuradio_wifi_imagetransfer_tpu_torch.utils.tracing import device_profile
 
             measured["step_ms_cuda_events"] = stats(
                 [self.event_ms(lambda: ex.step(0), 5) for _ in range(REPS)])
-            wall, busy, _, spans, n_act = chip_smoke.device_profile(lambda: ex.step(0))
+            wall, busy, _, spans, n_act = device_profile(lambda: ex.step(0))
             # idle share of the timed step: the profiler's own host work
             # stretches the profiled step's wall several times over
             measured["profiled_step"] = {"busy_ms": busy, "wall_ms": wall,

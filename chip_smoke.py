@@ -256,6 +256,11 @@ segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
 (stage A's SIGNAL trellises), and stage B the segmented one once a
 (rate, length) bucket (1 on a dense stream, 8 on the mixed one).
+This script keeps the phases; what other readers share is the package's:
+the shapes, streams, waterfall and soak (``utils/scenarios.py``), the
+card timers and call recording (``utils/tracing.py``), the holds against
+the plain versions (``ops/holds.py``) and each kernel's bound (beside the
+kernel, over the peaks of ``ops/roofline.py``).
 The last line of stdout is {"ok": true, "device": {...}}. Any failure
 exits non-zero. Without CUDA, or without the port package beside this
 file, it exits non-zero and prints no result.
@@ -277,24 +282,76 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "gnuradio_wifi_imagetransfer_tpu_torch"
 
-MCS = 2
-PSDU_LEN = 50
-# the bench's device_step shape (bench.py: BLOCK, TIME_BLOCKS, CHANNELS)
-BLOCK = 1 << 18
-TIME_BLOCKS = 16
-CHANNELS = 4
-MAX_FRAMES = 4
-FRAMES_PER_BLOCK = 3
+# the shapes, streams, bounds, timers and holds are the port package's
+# (the scenarios in utils/scenarios.py, the bounds beside their kernels)
+try:
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops.fir import (
+        fir_bound,
+        resample_bound,
+        resample_terms,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops.holds import (
+        hold_detect,
+        hold_recorded,
+        max_err,
+        merge_held,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops.roofline import bound_str
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops.sync_stats import (
+        sync_detect_bound,
+        sync_stats_bound,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops.viterbi_acs import (
+        K2_ACS_CYCLES,
+        K2_TRACEBACK_CYCLES,
+        chain_floor_ms,
+        viterbi_bound,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.scenarios import (
+        ADAPTIVE_SHARDS,
+        ADAPTIVE_SLOTS,
+        BLOCK,
+        CHANNELS,
+        FADING,
+        FRAMES_PER_BLOCK,
+        MAX_FRAMES,
+        MCS,
+        MESH_SUPERBLOCKS,
+        PSDU_LEN,
+        SMALL_GRAD_ATOL,
+        SMALL_GRAD_RTOL,
+        SMALL_LOSS_RTOL,
+        SMALL_LR,
+        SMALL_STATS_ATOL,
+        SOAK_TIMEOUT_S,
+        TIME_BLOCKS,
+        WATERFALL_FRAMES,
+        WATERFALL_PSDU,
+        adaptive_stream,
+        fft_oversample,
+        frame_errors,
+        make_stream,
+        run_soak,
+        sample_clock_offset,
+        seam_positions,
+        waterfall_failures,
+        waterfall_inputs,
+        waterfall_tables,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils.tracing import (
+        cuda_event_ms,
+        cuda_ms,
+        device_profile,
+        print_profile,
+        recording,
+    )
+except ImportError as e:
+    sys.exit(f"chip_smoke: FAILED: the port package {PKG} is not beside this script ({e})")
+
 # the bench's front-end pass shape (bench.py: n_out_pad, left pad 256)
 FE_OUT_PAD = 1 << 22
 FIR_TAPS = 65
-
-# the bench's adaptive shape (bench.py: BLOCK, DENSE_BLOCKS,
-# DENSE_MAX_FRAMES): one channel of 4 blocks, 128 slots a block, sc8
-ADAPTIVE_SHARDS = 4
-ADAPTIVE_SLOTS = 128
-ADAPTIVE_ROUNDS = 3                  # timed runs of each stream, in turns
-MAC_PAYLOAD = PSDU_LEN - 28          # + MAC header and FCS = a 50-byte PSDU
+ADAPTIVE_ROUNDS = 3                  # timed runs of each stream, in turns (phase 12)
 
 # the radios' traffic (phases 18-19): the Mode-2 deployment's image
 # (AppConfig.image_size, 3 channels) in 10 x 10 pieces, 2 700 datagrams,
@@ -336,16 +393,10 @@ IRS_GEOMETRY = (240, 128, "jsce_soma_dscn_240.npz")      # image side, c, checkp
 PHYSICS_ATOL = 2e-3
 # the training run (phase 25): make_weights_torch.py in this process, then
 # one m2m step at the small geometry (80 x 80, c = 64, 2 images a user) on
-# the card against the same step on the CPU. Tolerances: the loss within
-# 1e-4 relative; each gradient leaf within 1e-3 of its largest value
-# (1e-7 absolute at least: a conv bias before BatchNorm has a gradient of
-# rounding noise); parameters within 2 lr + 1e-6 (Adam's first step sends a
-# leaf by about lr whatever its gradient's size, so a noise gradient of
-# the other sign lands 2 lr away); batch statistics within 1e-5
+# the card against the same step on the CPU (at the SMALL_* tolerances)
 TRAIN_ARGS = ["--geometry", "ref", "--init-from-asset", "--steps", "16"]
 TRAIN_K = 8                          # make_weights_torch.py's steps a train_steps call at ref
-SMALL_LR, SMALL_BATCH, SMALL_SEED = 1e-3, 2, 25
-SMALL_LOSS_RTOL, SMALL_GRAD_RTOL, SMALL_GRAD_ATOL, SMALL_STATS_ATOL = 1e-4, 1e-3, 1e-7, 1e-5
+SMALL_BATCH, SMALL_SEED = 2, 25
 
 # the DQN controller (phase 26): tests/test_control.py:34-52's bandit on the
 # card (IrsPowerEnv(n_grid=3, obs_dim=4), 9 actions, DQN_STEPS steps), each
@@ -369,63 +420,14 @@ DQN_LOSS_RTOL = 1e-5
 MAE_BATCH, MAE_CHECK_BATCH, MAE_TIMED, ZOO_SEED = 8, 2, 20, 27
 ZOO_RTOL, ZOO_RTOL_DEEP, MAE_LOSS_RTOL = 1e-4, 5e-4, 1e-5
 
-# the mesh (phases 28-31): the fixed mesh stream holds MESH_SUPERBLOCKS
-# super-blocks of the bench shape (3 overlapping strides); the scripts run
-# at small settings, each within SCRIPT_TIMEOUT seconds
-MESH_SUPERBLOCKS = 2
+# the scripts (phase 31) run at small settings, each within SCRIPT_TIMEOUT
+# seconds
 SCRIPT_TUNE_FRAMES, SCRIPT_TIMEOUT = 4, 300
 # phase 32: multichip_torch.py's limit a world, in seconds
 MULTICHIP_TIMEOUT = 600
 # phase 33: bench_torch.py's phases and its budget in seconds
 BENCH_PHASES = ("device_small", "device", "pipeline", "adaptive:2", "adaptive:mix", "frontend")
 BENCH_BUDGET_S = 180
-# phase 34: the PER waterfall of tests/test_waterfall.py, genie-aligned
-# through rx.decode_aligned. AWGN: WATERFALL_FRAMES frames of
-# WATERFALL_PSDU bytes an MCS at the SNRs of tests/test_waterfall.py:38-57
-# and one point in each MCS's falling edge; fading: :80's table at full
-# size (its 3-tap wandering channel). Noise is drawn in numpy, one
-# unit-power draw a table scaled to each SNR.
-WATERFALL_FRAMES = 16
-WATERFALL_PSDU = 100
-# (the edge points: where the port's CPU path, 1 dB apart from -3 to 30 dB,
-# loses 3 to 10 of the 16 frames)
-WATERFALL_SNRS = {0: (-2.0, 1.0, 8.0, 10.0), 1: (3.0,), 2: (4.0,),
-                  3: (2.0, 4.0, 6.0, 10.0, 14.0, 18.0), 4: (9.0,), 5: (12.0,), 6: (16.0,),
-                  7: (10.0, 14.0, 17.0, 26.0)}
-FADING = {"frames": 16, "psdu": 400, "mcs": 5, "snrs": (15.0, 25.0, 35.0),
-          "algos": ("LS", "LMS", "COMB", "STA")}
-# phase 35: tests/test_soak.py at full scale: kodim07 at 300 x 300 (2 700
-# pieces a lap), 8 % of the sender's datagrams dropped, the canvas bit-exact
-SOAK_SIZE = 300
-SOAK_DROP = 0.08
-SOAK_TIMEOUT_S = 600.0
-
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
-# tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# float32 operations per sample of the sync statistics in the kernels'
-# addition-only form (csrc/sync_stats.cu, 8 outputs a thread): m (6),
-# |x|^2 (3), the window sums of 8 outputs (the shared cores of 41 complex
-# and 57 real terms 2 x 40 + 56, the suffix and running sums 2 x 3 x 7,
-# 2 adds an output for each of the 3 sums 48: 226 for 8), |a| / p (5)
-K1_OPS_PER_SAMPLE = 6 + 3 + 226 / 8 + 5
-# the fused detector adds the threshold compare
-K1_DETECT_OPS_PER_SAMPLE = K1_OPS_PER_SAMPLE + 1
-# per frame and trellis step of the Viterbi ACS in the kernel's form (the
-# code is linear, so a step has 4 distinct gains): 4 gains x (2 mul + 1
-# add) + 64 states x 2 edges x 1 add + 64 compare/select + 63 max + 64
-# subtract
-K2_OPS_PER_STEP = 4 * 3 + 64 * 2 + 64 + 63 + 64
-# a real tap on a complex sample: 2 multiplies + 2 adds
-OPS_PER_COMPLEX_TAP = 4
-# K2's chain floor, a design estimate in dependent cycles: an ACS step
-# (two shared loads in flight together ~33, add 4, compare/select 8, 3
-# in-lane max 12, 3 shuffles with their max ~84, subtract 4, stores and
-# the warp sync ~20) and a traceback step (shared byte load ~33, bit and
-# state arithmetic ~12)
-K2_ACS_CYCLES = 165
-K2_TRACEBACK_CYCLES = 45
 
 
 def fail(msg: str) -> None:
@@ -436,27 +438,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps runs, after one warm-up.
-
-    A device sleep of about 20 ms is queued ahead of the timed runs, so
-    the host enqueues them while the device waits: where the host keeps
-    up, the events time the device work and not the host's dispatch of a
-    kernel shorter than its wrapper's call."""
-    import torch
-
-    fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def fir_times(root: str) -> None:
@@ -470,6 +451,10 @@ def fir_times(root: str) -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    # this script loaded its own checkout's package (the timers it keeps);
+    # the kernels timed are root's
+    for name in [m for m in sys.modules if m == PKG or m.startswith(PKG + ".")]:
+        del sys.modules[name]
     sys.path.insert(0, root)
     try:
         from gnuradio_wifi_imagetransfer_tpu_torch import ops
@@ -509,237 +494,6 @@ def fir_times_of(root: str) -> dict:
         fail(f"--fir-times {root} printed no JSON line: {r.stdout[-2000:]}")
 
 
-def max_err(got, want) -> float:
-    return (got - want).abs().max().item()
-
-
-def detect_bound(x, k: int) -> dict:
-    """The fused detector's bound (ms) on x (..., n) with k slots a row:
-    each complex64 sample read once, each slot's start, valid, cfo and
-    ratio written once; the statistics and the threshold compare on every
-    sample."""
-    n = x.shape[-1]
-    rows = x.numel() // n
-    return {"bytes": (rows * n * 8 + rows * k * (4 + 1 + 8 + 4)) / HBM_BYTES_PER_S * 1e3,
-            "operations": rows * n * K1_DETECT_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
-
-
-def bound_str(bound: dict) -> str:
-    """'<ms> ms by <bytes|operations>', the larger of the two."""
-    by = max(bound, key=bound.get)
-    return f"{bound[by]:.5f} ms by {by}"
-
-
-def viterbi_bound(steps: int) -> dict:
-    """K2's bound (ms) for ``steps`` trellis steps in all: an LLR pair
-    read and a decided bit written a step, the ACS of a step."""
-    return {"bytes": steps * (8 + 1) / HBM_BYTES_PER_S * 1e3,
-            "operations": steps * K2_OPS_PER_STEP / FP32_OPS_PER_S * 1e3}
-
-
-class _Recorded:
-    """A kernel wrapper that keeps the arguments of each call (of the first
-    ``keep`` calls, when given). Its ``launches`` is the wrapper's own,
-    which the wrapper increments through its module attribute, that is
-    through this object."""
-
-    def __init__(self, fn, log: list, keep: int | None = None):
-        self.fn, self.log, self.keep = fn, log, keep
-
-    def __call__(self, *args, **kw):
-        if self.keep is None or len(self.log) < self.keep:
-            self.log.append((args, kw))
-        return self.fn(*args, **kw)
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.fn.launches = value
-
-
-@contextlib.contextmanager
-def recording(*targets, keep: int | None = None):
-    """Within the block, each (module, name) of targets keeps the
-    arguments of every call made through that module attribute (of its
-    first ``keep`` calls, when given), from any thread, and runs as before
-    (its launch count included). Yields {name: [(args, kwargs), ...]}."""
-    calls = {name: [] for _, name in targets}
-    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
-    for mod, name, fn in saved:
-        setattr(mod, name, _Recorded(fn, calls[name], keep))
-    try:
-        yield calls
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
-def hold_detect(args, label: str):
-    """The fused detector on args (x, K, threshold, min_plateau, search_lo,
-    search_hi) against its plain version (starts and valid exact, cfo
-    within 1e-4, ratio within 1e-3) and bit-identical to dense K1 plus the
-    plain glue; returns (max |dcfo|, max |dratio|, valid)."""
-    import torch
-
-    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
-
-    got = k1.sync_detect(*args)
-    want = k1.sync_detect_plain(*args)
-    a, _, c = k1.sync_stats(args[0])
-    glue = k1.detect_from_stats(a, c, *args[1:])
-    torch.cuda.synchronize()
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"sync_detect != plain on {label}: starts {got[0].tolist()} vs "
-          f"{want[0].tolist()}")
-    errs = max_err(got[2], want[2]), max_err(got[3], want[3])
-    check(errs[0] <= 1e-4 and errs[1] <= 1e-3,
-          f"sync_detect != plain on {label}: max |dcfo|, |dratio| = {errs}")
-    check(all(torch.equal(g, w) for g, w in zip(got, glue)),
-          f"sync_detect is not bit-identical to dense K1 + glue on {label}")
-    return errs[0], errs[1], int(got[1].sum())
-
-
-def hold_recorded(calls, label: str) -> dict:
-    """Each kernel call that a main-path run made (``recording``) again,
-    through the kernel and its plain version on the same inputs: the
-    detector as ``hold_detect``, K2 bit-exact, K4 within 2e-4. Returns
-    {kernel: (max error, [input shapes])}."""
-    import torch
-
-    from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
-    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
-
-    out = {}
-
-    def note(name, err, shape):
-        merge_held(out, {name: (err, [shape])})
-
-    for args, kw in calls.get("sync_detect", []):
-        e_cfo, e_ratio, _ = hold_detect(args, f"{label}: {tuple(args[0].shape)}, K {args[1]}")
-        note("sync_detect", max(e_cfo, e_ratio), (tuple(args[0].shape), args[1]))
-    for args, kw in calls.get("viterbi_decode", []):
-        got, want = k2.viterbi_decode(*args, **kw), k2.viterbi_decode_plain(*args, **kw)
-        check(torch.equal(got, want), f"viterbi_decode != plain on {label}: "
-                                      f"{tuple(args[0].shape)}, {(got != want).sum().item()} "
-                                      f"bits differ")
-        note("viterbi_decode", 0.0, tuple(args[0].shape))
-    for args, kw in calls.get("viterbi_decode_many", []):
-        got = k2.viterbi_decode_many(*args, **kw)
-        want = k2.viterbi_decode_many_plain(*args, **kw)
-        shape = [tuple(v.shape) for v in args[0]]
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"viterbi_decode_many != plain on {label}: {shape}")
-        note("viterbi_decode_many", 0.0, shape)
-    for args, kw in calls.get("polyphase_resample", []):
-        e = max_err(k34.polyphase_resample(*args, **kw), k34.polyphase_resample_plain(*args, **kw))
-        check(e <= 2e-4, f"polyphase_resample != plain on {label}: {tuple(args[0].shape)} at "
-                         f"{args[1]}/{args[2]}: {e:.3g} (2e-4)")
-        note("polyphase_resample", e, tuple(args[0].shape))
-    return out
-
-
-def merge_held(held: dict, out: dict) -> None:
-    """Adds a ``hold_recorded`` result to ``held`` (the largest error, the
-    shapes appended), kernel by kernel."""
-    for name, (e, shapes) in out.items():
-        e0, s0 = held.get(name, (0.0, []))
-        held[name] = (max(e0, e), s0 + shapes)
-
-
-def device_profile(fn):
-    """Runs fn() once under torch.profiler (CPU and CUDA activity) and
-    returns (wall ms, device busy ms, kernels by name {name: [ms, ...]},
-    layer spans {range: [span on the device timeline, busy in it, count]}
-    of the ``executor.*`` ranges, summed over a range's occurrences,
-    number of device activities)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_wall = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        t_wall = (time.perf_counter() - t_wall) * 1e3
-    # device activities: kernels and copies; the executor.* ranges also
-    # appear on the device timeline (as spans), so they are kept apart
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern = [e for e in dev_events if not e.name.startswith("executor.")]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    spans: dict[str, list] = {}
-    for e in dev_events:
-        if e.name.startswith("executor."):
-            r = e.time_range
-            acc = spans.setdefault(e.name, [0.0, 0.0, 0])
-            acc[0] += r.elapsed_us() / 1e3
-            acc[1] += sum(k.time_range.elapsed_us() for k in kern
-                          if r.start <= k.time_range.start < r.end) / 1e3
-            acc[2] += 1
-    spans = {k: [round(v[0], 3), round(v[1], 3), v[2]] for k, v in spans.items()}
-    by_name: dict[str, list] = {}
-    for e in kern:
-        by_name.setdefault(e.name[:60], []).append(e.time_range.elapsed_us() / 1e3)
-    return t_wall, busy, by_name, spans, len(kern)
-
-
-def print_profile(label: str, prof) -> None:
-    t_wall, busy, by_name, spans, n_act = prof
-    print(f"profiled {label}: {t_wall:.3f} ms wall, {busy:.3f} ms device busy "
-          f"({100 * (1 - busy / t_wall):.1f}% idle), {n_act} device activities; "
-          f"layers [device span ms, device busy ms, ranges] {json.dumps(spans)}")
-    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
-        print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
-
-
-def make_stream(tx, n: int, positions, n_frames: int, rng, device):
-    """One channel: n_frames port-TX bursts at positions in seeded noise."""
-    frames = rng.integers(0, 256, (n_frames, PSDU_LEN), dtype=np.uint8)
-    bursts = tx.transmit(frames, MCS, device=device).cpu().numpy()
-    x = np.zeros(n, np.complex64)
-    for pos, b in zip(positions, bursts):
-        x[pos: pos + b.size] += 0.5 * b
-    x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
-    return x.astype(np.complex64), frames
-
-
-def fft_oversample(x, m: int):
-    """Exact m-times oversampling along the last axis by FFT zero padding
-    (periodic), of a complex64 torch tensor on its device."""
-    import torch
-
-    n = x.shape[-1]
-    spec = torch.fft.fft(x)
-    up = torch.zeros(x.shape[:-1] + (m * n,), dtype=spec.dtype, device=x.device)
-    h = n // 2
-    up[..., :h] = spec[..., :h]
-    up[..., -h:] = spec[..., -h:]
-    return torch.fft.ifft(up) * m
-
-
-def sample_clock_offset(x: np.ndarray, ppm: float, n_taps: int = 16,
-                        chunk: int = 1 << 19) -> np.ndarray:
-    """numpy copy of the JAX package's channel/model.py sample_clock_offset
-    (a clock running (1 + ppm*1e-6) fast, y[m] = x(m (1 + ppm*1e-6)) by
-    Hann-windowed-sinc interpolation), with float64 positions, in chunks."""
-    delta = ppm * 1e-6
-    n = x.shape[-1]
-    n_out = int(n / max(1.0 + delta, 1e-9)) - n_taps
-    k = np.arange(-(n_taps // 2 - 1), n_taps // 2 + 1)
-    y = np.empty(n_out, np.complex64)
-    for lo in range(0, n_out, chunk):
-        t = np.arange(lo, min(lo + chunk, n_out)) * (1.0 + delta)
-        base = np.floor(t).astype(np.int64)
-        frac = (t - base).astype(np.float32)
-        idx = np.clip(base[:, None] + k[None, :], 0, n - 1)
-        arg = k[None, :].astype(np.float32) - frac[:, None]
-        w = np.sinc(arg) * (0.5 + 0.5 * np.cos(np.pi * arg / (n_taps // 2 + 1)))
-        w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
-        y[lo: lo + t.size] = (x[idx] * w).sum(-1)
-    return y
-
-
 def burst_rows(n: int, edges_per_row, min_plateau: int, seed: int):
     """Rows of faint noise with 48-sample bursts of a unit-magnitude
     16-periodic signal, each placed so that its rising detection edge
@@ -762,37 +516,6 @@ def fresh(x: np.ndarray, seed: int) -> np.ndarray:
     rng = np.random.default_rng(7000 + seed)
     return (x + 2e-3 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
             ).astype(np.complex64)
-
-
-def adaptive_stream(tx, mac, mcs, n: int, rng, device):
-    """bench.py's frames/s traffic, one channel of n samples: 50-byte
-    PSDUs back to back at spacing max(burst + 500, block/128 + 1) in noise
-    0.01, made by the port's TX on the card. mcs: one rate (a dense
-    stream), or None for the mixed stream, which rotates through the 8
-    rates frame by frame and carries MPDUs (22-byte payloads framed by
-    mac.frame_batch). Returns ((1, n) stream, (F, 50) PSDUs, (F,) rates)."""
-    import torch
-
-    rates = [mcs] if mcs is not None else list(range(8))
-    burst = max(tx.tx_plan(m, PSDU_LEN).n_samples for m in rates)
-    spacing = max(burst + 500, BLOCK // ADAPTIVE_SLOTS + 1)
-    positions = np.arange(300, n - burst - 800, spacing)
-    mcs_seq = np.arange(positions.size) % len(rates) if mcs is None else np.full(
-        positions.size, mcs)
-    if mcs is None:
-        psdus = mac.frame_batch(rng.integers(0, 256, (positions.size, MAC_PAYLOAD),
-                                             dtype=np.uint8))
-    else:
-        psdus = rng.integers(0, 256, (positions.size, PSDU_LEN), dtype=np.uint8)
-    x = np.zeros(n, np.complex64)
-    for m in rates:
-        sel = np.flatnonzero(mcs_seq == m)
-        bursts = tx.transmit(psdus[sel], m, scrambler_seed=torch.from_numpy(sel % 127 + 1),
-                             device=device).cpu().numpy()
-        for pos, b in zip(positions[sel], bursts):
-            x[pos: pos + b.size] += 0.5 * b
-    x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
-    return x[None].astype(np.complex64), psdus, mcs_seq
 
 
 def same_records(got, want, label: str) -> None:
@@ -1415,22 +1138,6 @@ def wait_whole(receiver, done, quiet: float = 2.0) -> bool:
             return done()
         time.sleep(0.02)
     return True
-
-
-def cuda_event_ms(fn, n: int) -> float:
-    """Median device milliseconds of n calls of fn (CUDA events around
-    each; fn returns to the host, so each call is synchronous)."""
-    import torch
-
-    ms = []
-    for _ in range(n):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(stop))
-    return float(np.median(ms))
 
 
 def mode1_images() -> dict:
@@ -2244,16 +1951,6 @@ def free_tcp_port() -> int:
         return s.getsockname()[1]
 
 
-def seam_positions(n: int, block: int) -> list[int]:
-    """Frame positions of the fixed mesh stream: one burst across each block
-    seam (its edge 700 samples before it, across the super-block strides'
-    seams too), one inside each block, one flush against the stream end."""
-    pos = []
-    for b in range(1, n // block):
-        pos += [b * block - block // 2, b * block - 700]
-    return pos + [n - block // 2, n - 1900]
-
-
 def mesh_phases(dev, card: str, reset, counts, cap_ppm, ppm_records) -> tuple[dict, dict]:
     """Phases 28-30 on a one-rank NCCL group: the fixed mesh step at the
     bench shape against the local executor, the adaptive mesh on the mixed
@@ -2605,112 +2302,6 @@ def bench_phase(card: str) -> None:
           f"{res['value']:.1f} {res['unit']}; result line: {line}")
 
 
-def unit_noise(shape, seed: int) -> np.ndarray:
-    """Complex white Gaussian noise of unit power (per-component std
-    1/sqrt(2)), complex128, from numpy."""
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2.0)
-
-
-def at_snr(bursts: np.ndarray, noise: np.ndarray, snr_db: float) -> np.ndarray:
-    """Unit-power bursts plus noise of voltage 10^(-snr/20), complex64
-    (tests/test_waterfall.py:29-31's convention)."""
-    return (bursts + 10 ** (-snr_db / 20) * noise).astype(np.complex64)
-
-
-def fading_burst(burst: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """tests/test_waterfall.py:61's slowly time-varying 3-tap channel, per
-    sample: tap gains wander smoothly with periods of about 80-130 symbols."""
-    n = burst.size
-    delays = np.array([0, 3, 7])
-    g0 = np.array([1.0, 0.45, 0.3]) * np.exp(2j * np.pi * rng.random(3))
-    periods = np.array([80.0, 102.4, 128.8]) * 80.0        # symbols -> samples
-    t = np.arange(n)[:, None]
-    wob = np.exp(1j * (2 * np.pi * t / periods + 2 * np.pi * rng.random(3)))
-    gains = g0 * (1 + 0.5 * (wob - wob[0]))                # (n, 3); H(0)=H0
-    y = np.zeros(n, dtype=np.complex128)
-    for d, gd in zip(delays, gains.T):
-        y[d:] += gd[d:] * burst[: n - d]
-    return y.astype(np.complex64)
-
-
-def waterfall_inputs(transmit, snrs=WATERFALL_SNRS, fading=FADING) -> dict:
-    """The waterfall's numpy inputs from seeds: the frames (rng 0, as
-    tests/test_waterfall.py), their bursts by ``transmit(psdu, mcs, seeds)``
-    (numpy complex64, scrambler seeds 1..n) and unit noise.
-    {"awgn": {mcs: (psdu, bursts, noise)}, "fading": (psdu, faded, noise)}."""
-    out = {"awgn": {}}
-    for mcs in snrs:
-        psdu = np.random.default_rng(0).integers(0, 256, (WATERFALL_FRAMES, WATERFALL_PSDU),
-                                                 dtype=np.uint8)
-        bursts = transmit(psdu, mcs, np.arange(1, WATERFALL_FRAMES + 1))
-        out["awgn"][mcs] = (psdu, bursts, unit_noise(bursts.shape, 1000 + mcs))
-    n = fading["frames"]
-    psdu = np.random.default_rng(0).integers(0, 256, (n, fading["psdu"]), dtype=np.uint8)
-    bursts = transmit(psdu, fading["mcs"], np.arange(1, n + 1))
-    faded = np.stack([fading_burst(b, np.random.default_rng(100 + i))
-                      for i, b in enumerate(bursts)])
-    out["fading"] = (psdu, faded, unit_noise(faded.shape, 7))
-    return out
-
-
-def waterfall_tables(inputs: dict, decode, snrs=WATERFALL_SNRS, fading=FADING) -> dict:
-    """``decode(y, mcs, psdu_len, algo)`` (a dict of numpy arrays with
-    "psdu") at every point: {("awgn", mcs, snr) and ("fading", algo, snr):
-    its result}. AWGN points are equalized by LS."""
-    out = {}
-    for mcs, points in snrs.items():
-        psdu, bursts, noise = inputs["awgn"][mcs]
-        for snr in points:
-            out[("awgn", mcs, snr)] = decode(at_snr(bursts, noise, snr), mcs, psdu.shape[1], "LS")
-    psdu, faded, noise = inputs["fading"]
-    for algo in fading["algos"]:
-        for snr in fading["snrs"]:
-            out[("fading", algo, snr)] = decode(at_snr(faded, noise, snr), fading["mcs"],
-                                                psdu.shape[1], algo)
-    return out
-
-
-def frame_errors(tables: dict, inputs: dict) -> dict:
-    """{point: (frames,) bool, the frames whose bytes differ from those sent}."""
-    def sent(key):
-        return inputs["awgn"][key[1]][0] if key[0] == "awgn" else inputs["fading"][0]
-
-    return {k: (v["psdu"] != sent(k)).any(axis=1) for k, v in tables.items()}
-
-
-def waterfall_failures(per: dict) -> list[str]:
-    """tests/test_waterfall.py's assertions on a table of PERs: the
-    regimes, the rate ladder, monotone PER over SNR (MCS 3), and, where
-    the table has its fading points, LS's floor with LMS and STA under it
-    and COMB near it. Returns the assertions that fail."""
-    bad = []
-
-    def need(cond, what):
-        if not cond:
-            bad.append(what)
-
-    for mcs, ok, dead in ((0, 8.0, -2.0), (3, 14.0, 4.0), (7, 26.0, 14.0)):
-        if ("awgn", mcs, ok) in per:
-            need(per[("awgn", mcs, ok)] == 0.0, f"MCS{mcs} clean at {ok} dB")
-            need(per[("awgn", mcs, dead)] > 0.5, f"MCS{mcs} fails at {dead} dB")
-    if ("awgn", 7, 10.0) in per:
-        need(per[("awgn", 0, 10.0)] == 0.0 and per[("awgn", 7, 10.0)] == 1.0,
-             "the rate ladder at 10 dB: MCS0 clean, MCS7 dead")
-    ladder = [per.get(("awgn", 3, s)) for s in (2.0, 6.0, 10.0, 14.0, 18.0)]
-    if None not in ladder:
-        need(all(a >= b - 0.07 for a, b in zip(ladder, ladder[1:]))
-             and ladder[0] > 0.5 and ladder[-1] == 0.0, f"MCS3 monotone over SNR: {ladder}")
-    if ("fading", "LS", 35.0) in per:
-        ls, lms, sta, comb = (per[("fading", a, 35.0)] for a in ("LS", "LMS", "STA", "COMB"))
-        need(ls >= 0.5, f"LS's fading floor at 35 dB {ls} >= 0.5")
-        need(lms <= ls - 0.3, f"LMS {lms} under LS {ls} - 0.3 at 35 dB")
-        need(sta <= ls - 0.25, f"STA {sta} under LS {ls} - 0.25 at 35 dB")
-        need(comb >= ls - 0.15, f"COMB {comb} near LS {ls} at 35 dB")
-        need(lms <= per[("fading", "LMS", 15.0)], "LMS at 35 dB no worse than at 15 dB")
-    return bad
-
-
 def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
     """Phase 34: the PER waterfall on the card. The port's TX makes the
     bursts on the CPU (``waterfall_inputs``); ``rx.decode_aligned`` decodes
@@ -2791,113 +2382,6 @@ def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
           f"{json.dumps(launches)}; held {kept}; viterbi_decode_many on {'; on '.join(timed)} "
           f"(CUDA events; {card})")
     return launches
-
-
-class LossyRelay:
-    """UDP forwarder dropping SOAK_DROP of the datagrams, drawn from
-    ``np.random.default_rng(0)`` (tests/test_soak.py's): loss injected
-    between the sender and the radio, independent of the PHY's own CRC
-    screen."""
-
-    def __init__(self, dst_port: int):
-        import socket
-        import threading
-
-        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        self.sock.bind(("127.0.0.1", 0))
-        self.sock.settimeout(0.2)
-        self.port = self.sock.getsockname()[1]
-        self.dst = ("127.0.0.1", dst_port)
-        self.rng = np.random.default_rng(0)
-        self.dropped = 0
-        self.forwarded = 0
-        self._stop = threading.Event()
-        self._t = threading.Thread(target=self._run, daemon=True)
-
-    def start(self):
-        self._t.start()
-        return self
-
-    def _run(self):
-        import socket
-
-        out = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        while not self._stop.is_set():
-            try:
-                data, _ = self.sock.recvfrom(65536)
-            except socket.timeout:
-                continue
-            except OSError:
-                break
-            if self.rng.random() < SOAK_DROP:
-                self.dropped += 1
-                continue
-            out.sendto(data, self.dst)
-            self.forwarded += 1
-        out.close()
-
-    def stop(self):
-        self._stop.set()
-        self._t.join(timeout=2.0)
-        self.sock.close()
-
-
-def run_soak(device, size: int = SOAK_SIZE, timeout_s: float = SOAK_TIMEOUT_S) -> dict:
-    """tests/test_soak.py's Mode-2 soak through the port: kodim07 resized
-    to size x size, the port's SenderApp (AppConfig, 2 ms piece spacing,
-    re-sent in laps) -> LossyRelay (SOAK_DROP of the datagrams) ->
-    LoopbackRadio (MCS 3, 22 dB, batch 16, on ``device``) -> ReceiverApp,
-    until the canvas equals the resized image or ``timeout_s`` passes.
-    Returns the record of docs/soak_mode2.md (``bit_exact`` False on a
-    timeout) with the relay's and the radio's counts."""
-    from PIL import Image
-
-    from gnuradio_wifi_imagetransfer_tpu_torch.config import AppConfig
-    from gnuradio_wifi_imagetransfer_tpu_torch.runtime.apps import ReceiverApp, SenderApp
-    from gnuradio_wifi_imagetransfer_tpu_torch.runtime.bridge import LoopbackRadio
-
-    img = np.asarray(Image.open(os.path.join(HERE, "assets", "kodim07.png")).convert("RGB"))
-    expect = np.asarray(Image.fromarray(img).resize((size, size)), dtype=np.uint8)
-    recv = ReceiverApp(cfg=AppConfig(image_size=(size, size)), http_port=0, rx_port=0)
-    radio = LoopbackRadio(in_port=0, out_port=recv.rx_port, mcs=3, snr_db=22.0, batch=16,
-                          device=device)
-    relay = LossyRelay(dst_port=radio.in_port)
-    send = SenderApp(cfg=AppConfig(image_size=(size, size), tx_port=relay.port,
-                                   piece_interval_s=0.002), http_port=0)
-    recv.start()
-    radio.start()
-    relay.start()
-    t0 = time.monotonic()
-    converged = None
-    try:
-        send.send_image(img)
-        while time.monotonic() - t0 < timeout_s:
-            if np.array_equal(recv.canvas, expect):
-                converged = time.monotonic() - t0
-                break
-            time.sleep(0.05)
-        laps = send.sender.laps + 1
-    finally:
-        send.stop()
-        relay.stop()
-        radio.stop()
-        recv.stop()
-    wall = time.monotonic() - t0
-    return {
-        "image": f"kodim07 {size}x{size}",
-        "pieces_per_lap": size * size * 3 // 100,
-        "laps_started": laps,
-        "injected_drop_rate": SOAK_DROP,
-        "relay_dropped": relay.dropped,
-        "relay_forwarded": relay.forwarded,
-        "radio_datagrams_in": radio.stats["datagrams_in"],
-        "pieces_decoded": recv.pieces_received,
-        "pieces_per_s": recv.pieces_received / (converged or wall),
-        "frames_crc_fail": radio.stats["frames_crc_fail"],
-        "converged_s": converged,
-        "bit_exact": converged is not None,
-        "pixels_equal": int((recv.canvas == expect).all(axis=-1).sum()),
-    }
 
 
 def soak_phase(dev, card: str, reset, counts, held: dict) -> dict:
@@ -3385,8 +2869,7 @@ def main() -> None:
     rows, n_ext = blocks.shape
     k1_ms = cuda_ms(lambda: k1.sync_stats(blocks), 20)
     k1_plain = cuda_ms(lambda: k1.sync_stats_plain(blocks), 3)
-    k1_bound = {"bytes": rows * n_ext * (8 + 16) / HBM_BYTES_PER_S * 1e3,
-                "operations": rows * n_ext * K1_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3}
+    k1_bound = sync_stats_bound(blocks)
     # the fused detector as the executor calls it, beside the PR 2 path
     # it replaces (dense K1 and the torch glue: top-k, cats, elementwise)
     det_args = (MAX_FRAMES, thr, mp, HALO_LEFT, HALO_LEFT + BLOCK)
@@ -3400,7 +2883,7 @@ def main() -> None:
     k1d_call = cuda_ms(lambda: k1.sync_detect(blocks, *det_args), 20)
     k1d_glue = cuda_ms(dense_and_glue, 10)
     k1d_plain = cuda_ms(lambda: k1.sync_detect_plain(blocks, *det_args), 3)
-    k1d_bound = detect_bound(blocks, MAX_FRAMES)
+    k1d_bound = sync_detect_bound(blocks, MAX_FRAMES)
 
     # K2 on the step's payload (pay) and SIGNAL (sig) trellises
     k2_pay, k2_sig = (cuda_ms(lambda: k2.viterbi_decode(v), 20) for v in (pay, sig))
@@ -3421,7 +2904,7 @@ def main() -> None:
     k2b_ms = cuda_ms(lambda: k2.viterbi_decode_many(*amain["viterbi_decode_many"]), 20)
     k2a_steps = sig_a.shape[0] * sig_a.shape[1]
     k2a_bound = viterbi_bound(k2a_steps)
-    k1a_bound = detect_bound(*amain["sync_detect"][:2])
+    k1a_bound = sync_detect_bound(*amain["sync_detect"][:2])
     k2b_bound = viterbi_bound(sum(v.shape[0] * v.shape[1]
                                   for v in amain["viterbi_decode_many"][0]))
     print(f"adaptive path (MCS {MCS} dense run): sync_detect on "
@@ -3434,7 +2917,7 @@ def main() -> None:
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.split()[0])
-    k2_floor = payload_steps * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3)
+    k2_floor = chain_floor_ms(payload_steps, sm_mhz)
     print(f"K1 on ({rows}, {n_ext}): dense {k1_ms:.4f} ms (bound bytes "
           f"{k1_bound['bytes']:.4f}, operations {k1_bound['operations']:.4f}); fused detector, "
           f"both launches {k1d_ms:.4f} ms, the wrapper's whole call {k1d_call:.4f} ms, against "
@@ -3461,9 +2944,7 @@ def main() -> None:
     k3_lib_err = max_err(torch.view_as_complex(lib_y.reshape(CHANNELS, 2, n).permute(
         0, 2, 1).contiguous()), k34.fir_filter(fir_x, fir_h))
     del re_im, lib_y
-    k3_n = fir_x.numel()
-    k3_bound = {"bytes": (k3_n * (8 + 8) + FIR_TAPS * 4) / HBM_BYTES_PER_S * 1e3,
-                "operations": k3_n * FIR_TAPS * OPS_PER_COMPLEX_TAP / FP32_OPS_PER_S * 1e3}
+    k3_bound = fir_bound(fir_x.numel(), FIR_TAPS)
 
     # K4 on the general front-end's input; library: conv1d with stride M
     # over the L-fold zero-stuffed re/im rows (stuffed and padded outside
@@ -3484,15 +2965,8 @@ def main() -> None:
     k4_lib_err = max_err(torch.view_as_complex(lib_y.reshape(CHANNELS, 2, n_out4).permute(
         0, 2, 1).contiguous()), k4_y)
     del stuffed, lib_y
-    # each term that the direct form sums is counted: every tap index is
-    # valid (36 taps = 12 a phase x 3), a sample index only inside the row
-    j4 = torch.arange(n_out4, device=dev, dtype=torch.int64) * 4 + (n_t4 - 1) // 2
-    base4 = j4 // 3
-    terms = sum(int(((base4 - k >= 0) & (base4 - k < n_in_pad)).sum())
-                for k in range(-(-n_t4 // 3)))
-    k4_bound = {"bytes": (k4_x.numel() * 8 + k4_y.numel() * 8 + n_t4 * 4)
-                / HBM_BYTES_PER_S * 1e3,
-                "operations": CHANNELS * terms * OPS_PER_COMPLEX_TAP / FP32_OPS_PER_S * 1e3}
+    k4_bound = resample_bound(k4_x.numel(), k4_y.numel(), n_t4,
+                              CHANNELS * resample_terms(n_in_pad, 3, 4, n_t4))
     print(f"library yardsticks (conv1d, TF32 off): fir {k3_lib:.4f} ms (max |dy| vs K3 "
           f"{k3_lib_err:.3g}), resample {k4_lib:.4f} ms (max |dy| vs K4 {k4_lib_err:.3g})")
 
@@ -3539,12 +3013,12 @@ def main() -> None:
         longest = max(v.shape[1] for v in vit_args[0])
         print(f"{label}, a steady pass's largest calls: sync_detect on "
               f"{tuple(det_args[0].shape)} with {det_args[1]} slots {det_ms:.4f} ms (bound "
-              f"{bound_str(detect_bound(*det_args[:2]))}); viterbi_decode_many on "
+              f"{bound_str(sync_detect_bound(*det_args[:2]))}); viterbi_decode_many on "
               f"{[tuple(v.shape) for v in vit_args[0]]} {vit_ms:.4f} ms (bound "
               f"{bound_str(viterbi_bound(sum(v.shape[0] * v.shape[1] for v in vit_args[0])))}; "
               f"chain floor of the design {longest} steps x {K2_ACS_CYCLES + K2_TRACEBACK_CYCLES}"
               f" cycles at {sm_mhz:.0f} MHz "
-              f"{longest * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3):.4f} ms) "
+              f"{chain_floor_ms(longest, sm_mhz):.4f} ms) "
               f"(CUDA events; {card})")
 
     pkg_src = f"{PKG}/csrc"
@@ -3621,4 +3095,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except AssertionError as e:          # a kernel call held against its plain version
+        fail(str(e))

@@ -16,8 +16,8 @@ two-buffer ring, 16 outputs a thread, the taps in chunks of up to 256
 through shared memory. K4 stages a tile's input span in shared memory
 and reads taps from the phase-major table of ``phase_table`` (built once
 per taps, ratio and device, and again only when tensor taps change);
-``resample_geometry`` picks its tile. The bounds and designs are in the
-source's notes.
+``resample_geometry`` picks its tile. The designs are in the source's
+notes; ``fir_bound`` and ``resample_bound`` are the kernels' bounds.
 
 The plain versions are the JAX package's XLA oracles (ops/resampler.py
 ``fir_filter`` and ``polyphase_resample``) in PyTorch, summed in tap
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import build, roofline
 
 _DTYPES = (torch.float32, torch.complex64)
 
@@ -258,3 +258,40 @@ def polyphase_resample(x: torch.Tensor, interp: int, decim: int, taps) -> torch.
 
 
 polyphase_resample.launches = 0
+
+
+# Bounds (ms on the card, ``roofline``)
+# ----------------------------------------------------------------------
+
+# a real tap on a complex sample: 2 multiplies + 2 adds, two fused
+# multiply-adds, so the FMA rate
+OPS_PER_COMPLEX_TAP = 4
+
+
+def fir_bound(n: int, taps: int) -> dict:
+    """K3's bound on n complex64 samples (all rows) with ``taps`` real
+    taps: each sample read and each output written once, the taps read
+    once; every tap on every sample."""
+    return roofline.bound(n * (8 + 8) + taps * 4, n * taps * OPS_PER_COMPLEX_TAP,
+                          roofline.FP32_FMA_OPS_PER_S)
+
+
+def resample_terms(n: int, interp: int, decim: int, n_taps: int) -> int:
+    """The terms that ``polyphase_resample_plain``'s direct form sums for a
+    row of n samples: a tap index inside the taps, a sample index inside
+    the row."""
+    n_out = out_len(n, interp, decim)
+    up = np.arange(n_out, dtype=np.int64) * decim + (n_taps - 1) // 2
+    t0 = up % interp
+    base = up // interp
+    return sum(int(((t0 + k * interp < n_taps) & (base - k >= 0) & (base - k < n)).sum())
+               for k in range(-(-n_taps // interp)))
+
+
+def resample_bound(n_in: int, n_out: int, n_taps: int, terms: int) -> dict:
+    """K4's bound for n_in complex64 samples in and n_out out (all rows)
+    with n_taps real taps and ``terms`` tap-sample products in all
+    (``resample_terms`` a row): each sample read, each output written and
+    each tap read once."""
+    return roofline.bound((n_in + n_out) * 8 + n_taps * 4, terms * OPS_PER_COMPLEX_TAP,
+                          roofline.FP32_FMA_OPS_PER_S)

@@ -16,13 +16,16 @@ silent window is exactly 0 (see the source's note):
 PyTorch: a delay-16 conjugate product and segmented moving sums.
 ``sync_detect_plain`` is the JAX package's ``detect`` over it, and
 ``first_edges_tiled`` a plain model of the detector's two-pass tiling.
+``sync_stats_bound`` and ``sync_detect_bound`` are the kernels' bounds.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import build, roofline
 
 DETECT_TILE = 992    # samples a detector block owns (csrc/sync_stats.cu kDetectTile)
 MAX_PLATEAU = 32     # largest min_plateau sync_detect takes (kLookBack)
@@ -243,3 +246,37 @@ def _detect_launch(x: torch.Tensor, k: int, threshold: float, min_plateau: int,
 
 
 sync_detect.launches = 0
+
+
+# Bounds (ms on the card, ``roofline``)
+# ----------------------------------------------------------------------
+
+# float32 operations per sample of the sync statistics in the kernels'
+# addition-only form (csrc/sync_stats.cu, 8 outputs a thread): m (6),
+# |x|^2 (3), the window sums of 8 outputs (the shared cores of 41 complex
+# and 57 real terms 2 x 40 + 56, the suffix and running sums 2 x 3 x 7,
+# 2 adds an output for each of the 3 sums 48: 226 for 8), |a| / p (5).
+# None is a fused multiply-add, so they meet the instruction rate.
+K1_OPS_PER_SAMPLE = 6 + 3 + 226 / 8 + 5
+# the fused detector adds the threshold compare
+K1_DETECT_OPS_PER_SAMPLE = K1_OPS_PER_SAMPLE + 1
+
+
+def sync_stats_bound(x) -> dict:
+    """Dense K1's bound on x (..., n) (anything with a ``shape``): each
+    complex64 sample read once, its a (complex64), p and c (float32)
+    written once; the statistics on every sample."""
+    samples = math.prod(x.shape)
+    return roofline.bound(samples * (8 + 16), samples * K1_OPS_PER_SAMPLE,
+                          roofline.FP32_INSTR_PER_S)
+
+
+def sync_detect_bound(x, k: int) -> dict:
+    """The fused detector's bound on x (..., n) with k slots a row: each
+    complex64 sample read once, each slot's start, valid, cfo and ratio
+    written once; the statistics and the threshold compare on every
+    sample."""
+    samples = math.prod(x.shape)
+    rows = samples // x.shape[-1]
+    return roofline.bound(samples * 8 + rows * k * (4 + 1 + 8 + 4),
+                          samples * K1_DETECT_OPS_PER_SAMPLE, roofline.FP32_INSTR_PER_S)

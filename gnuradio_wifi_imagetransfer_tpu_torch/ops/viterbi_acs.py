@@ -12,6 +12,8 @@ source's note).
 ``viterbi_decode_plain`` is the JAX package's XLA path (phy/viterbi.py:
 73-110) in PyTorch, with the same float32 operations in the same order;
 kernel, plain version and the JAX path agree bit for bit.
+``viterbi_bound`` is the kernel's bound and ``chain_floor_ms`` the floor
+of its design's serial chain.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import build, roofline
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
 
 
@@ -155,3 +157,34 @@ def _decode_segments(llrs, terminated, name: str):
 
 
 viterbi_decode_many.launches = 0
+
+
+# Bounds (ms on the card, ``roofline``)
+# ----------------------------------------------------------------------
+
+# per frame and trellis step of the Viterbi ACS in the kernel's form (the
+# code is linear, so a step has 4 distinct gains): 4 gains x (2 mul + 1
+# add) + 64 states x 2 edges x 1 add + 64 compare/select + 63 max + 64
+# subtract; counted at the instruction rate
+K2_OPS_PER_STEP = 4 * 3 + 64 * 2 + 64 + 63 + 64
+# the chain floor, a design estimate in dependent cycles: an ACS step
+# (two shared loads in flight together ~33, add 4, compare/select 8, 3
+# in-lane max 12, 3 shuffles with their max ~84, subtract 4, stores and
+# the warp sync ~20) and a traceback step (shared byte load ~33, bit and
+# state arithmetic ~12)
+K2_ACS_CYCLES = 165
+K2_TRACEBACK_CYCLES = 45
+
+
+def viterbi_bound(steps: int) -> dict:
+    """K2's bound for ``steps`` trellis steps in all (frames x steps,
+    summed over the segments): an LLR pair read and a decided bit written
+    a step, the ACS of a step."""
+    return roofline.bound(steps * (8 + 1), steps * K2_OPS_PER_STEP, roofline.FP32_INSTR_PER_S)
+
+
+def chain_floor_ms(steps: int, sm_mhz: float) -> float:
+    """The design's floor for a trellis of ``steps`` steps at an SM clock
+    of ``sm_mhz``: each step's ACS and traceback run one after the other
+    on one frame's lanes, whatever the number of frames."""
+    return steps * (K2_ACS_CYCLES + K2_TRACEBACK_CYCLES) / (sm_mhz * 1e3)

@@ -15,6 +15,20 @@ profiler scope (the JAX package's utils/tracing.py).
     profile()     context manager around torch.profiler that writes a
                   Chrome trace.
 
+The port's own card timers, which raise where there is no card (a host
+clock is no device time):
+
+    cuda_ms         mean device ms of a run of calls (CUDA events, the
+                    host queued behind a device sleep);
+    cuda_event_ms   median device ms of calls that each return to the host;
+    device_profile  one call under torch.profiler: wall and busy ms, the
+                    kernels by name, the ``executor.*`` ranges' spans;
+    print_profile   prints a ``device_profile`` result.
+
+``recording`` keeps the arguments of each call made through a kernel
+wrapper's module attribute, so that a run's calls can be made again
+through the kernel and its plain version (``ops.holds``).
+
 The executors feed their Tracer's stages; the radios (runtime/bridge.py)
 feed the three probes.
 """
@@ -23,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -246,3 +261,141 @@ def profile(logdir: str | None = None):
         yield prof
     prof.export_chrome_trace(os.path.join(
         logdir, f"torch_trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+
+
+# Card timers
+# ----------------------------------------------------------------------
+
+
+def _need_card(name: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: needs a CUDA device (a host clock is no device time)")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps runs, after one warm-up.
+
+    A device sleep of about 20 ms is queued ahead of the timed runs, so
+    the host enqueues them while the device waits: where the host keeps
+    up, the events time the device work and not the host's dispatch of a
+    kernel shorter than its wrapper's call."""
+    _need_card("cuda_ms")
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def cuda_event_ms(fn, n: int) -> float:
+    """Median device milliseconds of n calls of fn (CUDA events around
+    each; fn returns to the host, so each call is synchronous)."""
+    _need_card("cuda_event_ms")
+    ms = []
+    for _ in range(n):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return float(np.median(ms))
+
+
+def device_profile(fn):
+    """Runs fn() once under torch.profiler (CPU and CUDA activity) and
+    returns (wall ms, device busy ms, kernels by name {name: [ms, ...]},
+    layer spans {range: [span on the device timeline, busy in it, count]}
+    of the ``executor.*`` ranges, summed over a range's occurrences,
+    number of device activities)."""
+    from torch.profiler import ProfilerActivity
+
+    _need_card("device_profile")
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_wall = (time.perf_counter() - t_wall) * 1e3
+    # device activities: kernels and copies; the executor.* ranges also
+    # appear on the device timeline (as spans), so they are kept apart
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in dev_events if not e.name.startswith("executor.")]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    spans: dict[str, list] = {}
+    for e in dev_events:
+        if e.name.startswith("executor."):
+            r = e.time_range
+            acc = spans.setdefault(e.name, [0.0, 0.0, 0])
+            acc[0] += r.elapsed_us() / 1e3
+            acc[1] += sum(k.time_range.elapsed_us() for k in kern
+                          if r.start <= k.time_range.start < r.end) / 1e3
+            acc[2] += 1
+    spans = {k: [round(v[0], 3), round(v[1], 3), v[2]] for k, v in spans.items()}
+    by_name: dict[str, list] = {}
+    for e in kern:
+        by_name.setdefault(e.name[:60], []).append(e.time_range.elapsed_us() / 1e3)
+    return t_wall, busy, by_name, spans, len(kern)
+
+
+def print_profile(label: str, prof) -> None:
+    """Prints a ``device_profile`` result: wall, busy and idle share, the
+    layers' spans and the 8 kernels that took longest."""
+    t_wall, busy, by_name, spans, n_act = prof
+    print(f"profiled {label}: {t_wall:.3f} ms wall, {busy:.3f} ms device busy "
+          f"({100 * (1 - busy / t_wall):.1f}% idle), {n_act} device activities; "
+          f"layers [device span ms, device busy ms, ranges] {json.dumps(spans)}")
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        print(f"  {sum(ts):8.3f} ms  x{len(ts):<5d} {name}")
+
+
+# Kernel call recording
+# ----------------------------------------------------------------------
+
+
+class _Recorded:
+    """A kernel wrapper that keeps the arguments of each call (of the first
+    ``keep`` calls, when given). Its ``launches`` is the wrapper's own,
+    which the wrapper increments through its module attribute, that is
+    through this object."""
+
+    def __init__(self, fn, log: list, keep: int | None = None):
+        self.fn, self.log, self.keep = fn, log, keep
+
+    def __call__(self, *args, **kw):
+        if self.keep is None or len(self.log) < self.keep:
+            self.log.append((args, kw))
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def recording(*targets, keep: int | None = None):
+    """Within the block, each (module, name) of targets keeps the
+    arguments of every call made through that module attribute (of its
+    first ``keep`` calls, when given), from any thread, and runs as before
+    (its launch count included). Yields {name: [(args, kwargs), ...]}.
+    Callers that are to be recorded reach the kernel through its module
+    (``viterbi_acs.viterbi_decode_many``), not through a name bound when
+    they were imported."""
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, fn in saved:
+        setattr(mod, name, _Recorded(fn, calls[name], keep))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)

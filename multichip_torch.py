@@ -41,7 +41,7 @@ seeded or from ``--train-npz``.
 Every frame must come back bit-exact at its rate, and on rank 0 the good
 records must equal the local executor's on the same stream; the trainer's
 losses, first gradients, parameters and batch statistics must lie within
-chip_smoke.py's SMALL_* tolerances of the one-rank Trainer, and every
+the SMALL_* tolerances (utils/scenarios.py) of the one-rank Trainer, and every
 rank's parameters must equal rank 0's. On the card, rank 0 holds the first
 calls of K1 and K2 against their plain versions, and every rank's
 launches must be one detector and one Viterbi launch a step. A rank that
@@ -77,7 +77,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-import chip_smoke as cs
 import make_weights_torch as mwt
 from gnuradio_wifi_imagetransfer_tpu_torch.config import ExecutorConfig, FrontendConfig
 from gnuradio_wifi_imagetransfer_tpu_torch.models import weights
@@ -86,6 +85,7 @@ from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+from gnuradio_wifi_imagetransfer_tpu_torch.ops.holds import hold_recorded
 from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
     AdaptiveStreamExecutor,
     StreamExecutor,
@@ -94,12 +94,18 @@ from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
 )
 from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import HALO_LEFT
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac, tx
+from gnuradio_wifi_imagetransfer_tpu_torch.utils import scenarios as sc
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
-from gnuradio_wifi_imagetransfer_tpu_torch.utils.tracing import Tracer
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.tracing import (
+    Tracer,
+    cuda_ms,
+    device_profile,
+    recording,
+)
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.trainer import Trainer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-MCS, L = cs.MCS, cs.PSDU_LEN
+MCS, L = sc.MCS, sc.PSDU_LEN
 DRY_BLOCK, DRY_BLOCKS, DRY_CHANNELS, DRY_FRAMES = 4096, 4, 2, 2   # dryrun_multichip(8)'s
 DRY_TRAIN = (16, 32, 4)                # SOMANet(compressed_channel=32, img_size=16, n_irs=4)
 TRAIN_BATCH = 8                        # crops a user, split over the ranks
@@ -202,12 +208,12 @@ class MeshRun:
 
 def seam_stream(channels: int, n: int, block: int, seed: int, device):
     """Phase 28's stream: frames across every block seam, one inside each
-    block, one flush against the end (``chip_smoke.seam_positions``)."""
-    positions = cs.seam_positions(n, block)
+    block, one flush against the end (``scenarios.seam_positions``)."""
+    positions = sc.seam_positions(n, block)
     rng = np.random.default_rng(seed)
     rows, sent = [], set()
     for ch in range(channels):
-        x, frames = cs.make_stream(tx, n, positions, len(positions), rng, device)
+        x, frames = sc.make_stream(tx, n, positions, len(positions), rng, device)
         rows.append(x)
         sent |= {(ch, MCS, f.tobytes()) for f in frames}
     return np.stack(rows), sent
@@ -215,39 +221,39 @@ def seam_stream(channels: int, n: int, block: int, seed: int, device):
 
 def full_runs(world: int, seed: int, dev) -> list[MeshRun]:
     """The executor legs at full width (chip_smoke.py phases 11, 28, 29)."""
-    block, t, c = cs.BLOCK, cs.TIME_BLOCKS, cs.CHANNELS
+    block, t, c = sc.BLOCK, sc.TIME_BLOCKS, sc.CHANNELS
     cfg = ExecutorConfig(block_size=block, time_shards=t, channels=c,
-                         max_frames_per_block=cs.MAX_FRAMES, wire_format="sc16")
+                         max_frames_per_block=sc.MAX_FRAMES, wire_format="sc16")
     runs = []
-    stream, sent = seam_stream(c, cs.MESH_SUPERBLOCKS * t * block, block, 28 + seed, dev)
+    stream, sent = seam_stream(c, sc.MESH_SUPERBLOCKS * t * block, block, 28 + seed, dev)
     runs.append(MeshRun("fixed", (c, t), cfg, stream, sent))
     jc, jt = jax_layout(world)
-    stream, sent = seam_stream(jc, cs.MESH_SUPERBLOCKS * jt * block, block, 280 + seed, dev)
+    stream, sent = seam_stream(jc, sc.MESH_SUPERBLOCKS * jt * block, block, 280 + seed, dev)
     runs.append(MeshRun("fixed-jax-layout", (jc, jt), dataclasses.replace(
         cfg, time_shards=jt, channels=jc), stream, sent))
 
-    aspan = cs.ADAPTIVE_SHARDS * block
-    x, psdus, mcs_seq = cs.adaptive_stream(tx, mac, None, 2 * aspan,
+    aspan = sc.ADAPTIVE_SHARDS * block
+    x, psdus, mcs_seq = sc.adaptive_stream(tx, mac, None, 2 * aspan,
                                            np.random.default_rng(29 + seed), dev)
-    runs.append(MeshRun("adaptive", (1, cs.ADAPTIVE_SHARDS), ExecutorConfig(
-        block_size=block, time_shards=cs.ADAPTIVE_SHARDS, max_frames_per_block=cs.ADAPTIVE_SLOTS,
+    runs.append(MeshRun("adaptive", (1, sc.ADAPTIVE_SHARDS), ExecutorConfig(
+        block_size=block, time_shards=sc.ADAPTIVE_SHARDS, max_frames_per_block=sc.ADAPTIVE_SLOTS,
         wire_format="sc8"), x, {(0, int(m), f.tobytes()) for m, f in zip(mcs_seq, psdus)},
         adaptive=True))
 
     # phase 11's capture: the executor's stream 2x oversampled by FFT on
     # the device, then skewed by +40 ppm on the host (a thread a channel)
     n = t * block
-    n_frames = cs.FRAMES_PER_BLOCK * t
+    n_frames = sc.FRAMES_PER_BLOCK * t
     positions = [min(150 + i * (n // n_frames), n - 2000) for i in range(n_frames)]
     rng = np.random.default_rng(seed)
     rows, sent = [], set()
     for ch in range(c):
-        x, frames = cs.make_stream(tx, n, positions, n_frames, rng, dev)
+        x, frames = sc.make_stream(tx, n, positions, n_frames, rng, dev)
         rows.append(x)
         sent |= {(ch, MCS, f.tobytes()) for f in frames}
-    up2 = cs.fft_oversample(torch.from_numpy(np.stack(rows)).to(dev), 2).cpu().numpy()
+    up2 = sc.fft_oversample(torch.from_numpy(np.stack(rows)).to(dev), 2).cpu().numpy()
     with concurrent.futures.ThreadPoolExecutor(c) as pool:
-        cap = np.stack(list(pool.map(lambda row: cs.sample_clock_offset(row, 40.0), up2)))
+        cap = np.stack(list(pool.map(lambda row: sc.sample_clock_offset(row, 40.0), up2)))
     runs.append(MeshRun("frontend", (c, t), dataclasses.replace(
         cfg, frontend=FrontendConfig(resample=(1, 2), ppm=40.0)), cap, sent))
     return runs
@@ -370,7 +376,7 @@ def mesh_leg(r: Rank, run: MeshRun) -> dict:
     record = r.rank == 0 and r.cuda
     r.sync()
     r.reset()
-    with (cs.recording(*targets, keep=HELD) if record else contextlib.nullcontext({})) as calls:
+    with (recording(*targets, keep=HELD) if record else contextlib.nullcontext({})) as calls:
         records = ex.run(run.stream)
     launches = r.counts()
     good = {(rec.channel, rec.rate_idx, rec.psdu.tobytes()) for rec in records if rec.parity_ok}
@@ -402,7 +408,7 @@ def mesh_leg(r: Rank, run: MeshRun) -> dict:
         wire, taus = ex.mesh_layout(run.stream, 0)
         wire = torch.from_numpy(wire).to(r.dev)
         taus = None if taus is None else torch.from_numpy(taus).to(r.dev)
-        step_ms = cs.cuda_ms(lambda: ex.mesh_step(wire, taus), 5)
+        step_ms = cuda_ms(lambda: ex.mesh_step(wire, taus), 5)
         del wire, taus
     per_rank = r.gather({"launches": launches, "stages_ms": stages, "digest":
                          records_digest(records)})
@@ -424,7 +430,7 @@ def mesh_leg(r: Rank, run: MeshRun) -> dict:
                                     f"executor's")
         held = {}
         if record:
-            for name, (e, shapes) in cs.hold_recorded(calls, run.label).items():
+            for name, (e, shapes) in hold_recorded(calls, run.label).items():
                 held[name] = {"max_abs_err": e, "inputs": sorted({str(s) for s in shapes})}
         out["held"] = held
         del local, calls
@@ -454,7 +460,7 @@ def train_leg(r: Rank) -> dict:
             torch.cuda.synchronize()
         return losses, grads, ev[0].elapsed_time(ev[1]) if r.cuda else None
 
-    tr = Trainer(model, learning_rate=cs.SMALL_LR, mesh=make_data_mesh(group=r.group),
+    tr = Trainer(model, learning_rate=sc.SMALL_LR, mesh=make_data_mesh(group=r.group),
                  device=r.dev)
     r.sync()
     r.reset()
@@ -479,7 +485,7 @@ def train_leg(r: Rank) -> dict:
             return tr.train_step(batches[0], labels, "m2m")
 
         if r.rank == 0:
-            wall_ms, busy, by_name, _, n_act = cs.device_profile(step3)
+            wall_ms, busy, by_name, _, n_act = device_profile(step3)
             top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
             profile = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
                        "activities": n_act,
@@ -496,23 +502,23 @@ def train_leg(r: Rank) -> dict:
     if r.rank == 0:
         local = train_model(r.args, r.dev)
         local.load_state_dict(start)
-        l_loc, g_loc, loc_ms = two_steps(Trainer(local, learning_rate=cs.SMALL_LR,
+        l_loc, g_loc, loc_ms = two_steps(Trainer(local, learning_rate=sc.SMALL_LR,
                                                     device=r.dev))
         v_loc = weights._flatten(weights.flax_from_module(local))
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l_loc))
         grad_bad = [n for n in g_loc if float((grads[n] - g_loc[n]).abs().max()) > max(
-            cs.SMALL_GRAD_RTOL * float(g_loc[n].abs().max()), cs.SMALL_GRAD_ATOL)]
+            sc.SMALL_GRAD_RTOL * float(g_loc[n].abs().max()), sc.SMALL_GRAD_ATOL)]
         param_err = max(float(np.abs(state[k] - v_loc[k]).max()) for k in v_loc
                         if k.startswith("params"))
         stats_err = max((float(np.abs(state[k] - v_loc[k]).max()) for k in v_loc
                          if k.startswith("batch_stats")), default=0.0)
         out.update(local_losses=l_loc, local_warm_step_ms=loc_ms, loss_rel=loss_rel,
-                   grads_out_of_tolerance=grad_bad, param_err_lr=param_err / cs.SMALL_LR,
+                   grads_out_of_tolerance=grad_bad, param_err_lr=param_err / sc.SMALL_LR,
                    stats_err=stats_err)
-        r.check(loss_rel <= cs.SMALL_LOSS_RTOL and not grad_bad,
+        r.check(loss_rel <= sc.SMALL_LOSS_RTOL and not grad_bad,
                 f"train: losses {loss_rel:.3g} relative or gradients {grad_bad[:5]} off the "
                 f"one-rank Trainer's")
-        r.check(param_err <= 2 * 2 * cs.SMALL_LR + 1e-6 and stats_err <= cs.SMALL_STATS_ATOL,
+        r.check(param_err <= 2 * 2 * sc.SMALL_LR + 1e-6 and stats_err <= sc.SMALL_STATS_ATOL,
                 f"train: parameters {param_err:.3g} or statistics {stats_err:.3g} off the "
                 f"one-rank Trainer's")
         del local

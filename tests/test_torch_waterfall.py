@@ -2,14 +2,14 @@
 port against the JAX package.
 
 The same frames (rng 0) go through JAX's TX; the noise is drawn in numpy
-(JAX's ``jax.random.key`` stream has no torch twin) by chip_smoke.py's
-harness, which phase 34 runs on the card at full size. Both packages'
-``decode_aligned`` decode every point: psdu, rate_idx, length and
-parity_ok equal exactly, eq_symbols and csi within 1e-4 (two float32 FFT
-libraries, as tests/test_torch_rx.py) and 1e-5 of the value (``RTOL``), so
-the PER tables are equal; then test_waterfall.py's own assertions hold on
-them. The fading table is cut to 8 frames at 15 and 35 dB (the card runs
-it whole)."""
+(JAX's ``jax.random.key`` stream has no torch twin) by the port's
+harness (``utils/scenarios.py``), which chip_smoke.py's phase 34 runs on
+the card at full size. Both packages' ``decode_aligned`` decode every
+point: psdu, rate_idx, length and parity_ok equal exactly, eq_symbols and
+csi within 1e-4 (two float32 FFT libraries, as tests/test_torch_rx.py)
+and 1e-5 of the value (``RTOL``), so the PER tables are equal; then
+test_waterfall.py's own assertions hold on them. The fading table is cut
+to 8 frames at 15 and 35 dB (the card runs it whole)."""
 
 import importlib.util
 import pathlib
@@ -25,6 +25,7 @@ from gnuradio_wifi_imagetransfer_tpu.phy import rx as jrx
 from gnuradio_wifi_imagetransfer_tpu.phy import tx as jtx
 from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, tx
+from gnuradio_wifi_imagetransfer_tpu_torch.utils import scenarios as sc
 
 torch.set_num_threads(2)
 
@@ -45,8 +46,7 @@ def _load(name, path):
     return mod
 
 
-cs = _load("chip_smoke", "chip_smoke.py")
-FADING = dict(cs.FADING, frames=8, snrs=(15.0, 35.0))
+FADING = dict(sc.FADING, frames=8, snrs=(15.0, 35.0))
 
 
 def jax_transmit(psdu, mcs, seeds):
@@ -92,8 +92,8 @@ def _tables_of(name):
     if name not in _tables:
         snrs = AWGN if name == "awgn" else {}
         fading = FADING if name == "fading" else dict(FADING, algos=())
-        inputs = cs.waterfall_inputs(jax_transmit, snrs=snrs, fading=fading)
-        tables = [cs.waterfall_tables(inputs, dec, snrs=snrs, fading=fading)
+        inputs = sc.waterfall_inputs(jax_transmit, snrs=snrs, fading=fading)
+        tables = [sc.waterfall_tables(inputs, dec, snrs=snrs, fading=fading)
                   for dec in (_jax_decode, _port_decode)]
         _tables[name] = (inputs, *tables)
     return _tables[name]
@@ -109,8 +109,8 @@ def _per(name):
             assert np.array_equal(g[f], w[f].astype(g[f].dtype)), (key, f)
         for f in ("eq_symbols", "csi"):
             np.testing.assert_allclose(g[f], w[f], atol=1e-4, rtol=RTOL, err_msg=str(key))
-    errs = cs.frame_errors(want, inputs)
-    assert all(np.array_equal(e, cs.frame_errors(got, inputs)[k]) for k, e in errs.items())
+    errs = sc.frame_errors(want, inputs)
+    assert all(np.array_equal(e, sc.frame_errors(got, inputs)[k]) for k, e in errs.items())
     return {k: float(e.mean()) for k, e in errs.items()}
 
 
@@ -136,21 +136,21 @@ def test_per_monotone_in_snr():
     pers = [per[("awgn", 3, s)] for s in (2.0, 6.0, 10.0, 14.0, 18.0)]
     assert all(a >= b - 0.07 for a, b in zip(pers, pers[1:])), pers
     assert pers[0] > 0.5 and pers[-1] == 0.0, pers
-    assert cs.waterfall_failures(per) == []
+    assert sc.waterfall_failures(per) == []
 
 
 def test_equalizer_algorithm_waterfall_over_fading_reduced():
     """test_waterfall.py:80's table cut to 8 frames at 15 and 35 dB:
     equal in both packages frame by frame, and its assertions hold."""
     per = _per("fading")
-    assert cs.waterfall_failures(per) == [], per
+    assert sc.waterfall_failures(per) == [], per
 
 
 def test_fading_burst_is_test_waterfalls():
-    """chip_smoke.py's copy of the channel (it imports nothing of the
-    tests) makes test_waterfall.py's bursts."""
+    """The port's copy of the channel (it imports nothing of the tests)
+    makes test_waterfall.py's bursts."""
     wf = _load("_waterfall_twin_of", "tests/test_waterfall.py")
     burst = (np.random.default_rng(1).standard_normal(3000) * (1 + 1j)).astype(np.complex64)
     for seed in (100, 107):
         want = wf._fading_burst(burst, np.random.default_rng(seed))
-        assert np.array_equal(cs.fading_burst(burst, np.random.default_rng(seed)), want)
+        assert np.array_equal(sc.fading_burst(burst, np.random.default_rng(seed)), want)
