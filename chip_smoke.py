@@ -228,13 +228,28 @@ holds each hand-written kernel against its plain PyTorch version:
      22 dB, batch 16) on the card -> ReceiverApp, until the canvas is
      bit-exact (600 s at most), no "dropped" line, K1 and K2 launched and
      their first calls held; the record of docs/soak_mode2.md is printed;
+ 36. the local executors' CUDA graphs (parallel/graphs.py) against the
+     same executors run eagerly (``EagerGraphs``): the device_step shape's
+     stream, and phase 12's dense MCS-0 and mixed streams, each run twice
+     through the graphs (the first run captures, the second replays),
+     every record bit for bit the eager run's, each step launching the
+     detector and K2 once and each bucket K2 once, every kernel call of
+     the replayed run held against its plain version; the step's ms by
+     CUDA events and by the host clock, its device busy and activities (3
+     profiled steps) and capture ms, eager and graph in turns; frames/s
+     and stage-B host ms a bucket in turns; the graphs, their keys and
+     ``memory_reserved``; LMS stage B of an 800-byte MCS-0 frame (268
+     symbols unrolled into one graph): capture ms and the device
+     activities of one bare replay; with ``--parent``, ``tools/step_ab.py``
+     over both checkouts in turns;
 then one JSON line of kernel timings, bounds and launch counts (each
 kernel's ``radio_launches`` are those of phases 18 and 19, its
 ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
 ``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
 ``zoo_launches`` phase 27's, ``mesh_launches`` those of phases 28-30,
 ``multichip_launches`` rank 0's of each leg of phase 32,
-``waterfall_launches`` phase 34's and ``soak_launches`` phase 35's).
+``waterfall_launches`` phase 34's, ``soak_launches`` phase 35's and
+``graph_launches`` the replayed runs' of phase 36).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -246,7 +261,7 @@ radio run of 18-19, the first run of each app phase, 20-21, the SV fading
 receives of 23, the training script of 25, the controller's run of 26,
 the zoo's runs of 27, each mesh run of 28-29, the data-parallel
 trainer of 30, on every rank of phase 32, each leg's checked run, the
-card's decodes of 34 and the soak of 35) and
+card's decodes of 34, the soak of 35 and each run of 36) and
 read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
 run none of the four kernels (their convolutions are cuDNN's, their
@@ -255,7 +270,9 @@ A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
 (stage A's SIGNAL trellises), and stage B the segmented one once a
-(rate, length) bucket (1 on a dense stream, 8 on the mixed one).
+(rate, length) bucket (1 on a dense stream, 8 on the mixed one). On the
+card the local executors replay CUDA graphs, and a replay counts each
+kernel call its capture logged, once.
 This script keeps the phases; what other readers share is the package's:
 the shapes, streams, waterfall and soak (``utils/scenarios.py``), the
 card timers and call recording (``utils/tracing.py``), the holds against
@@ -531,12 +548,28 @@ def same_records(got, want, label: str) -> None:
               f"{label}: the card's record {g} differs from the CPU's {w}")
 
 
+def identical_records(got, want, label: str) -> None:
+    """Two runs' frame records bit for bit: every field equal, the float
+    ones (cfo, snr, captured symbols) included."""
+    check(len(got) == len(want), f"{label}: {len(got)} records against {len(want)}")
+    for g, w in zip(got, want):
+        check((g.channel, g.global_start, g.rate_idx, g.length, g.parity_ok)
+              == (w.channel, w.global_start, w.rate_idx, w.length, w.parity_ok)
+              and np.array_equal(g.psdu, w.psdu)
+              and np.array_equal(np.float32([g.cfo, g.snr_db]), np.float32([w.cfo, w.snr_db]),
+                                 equal_nan=True)
+              and (g.eq_symbols is None) == (w.eq_symbols is None)
+              and (g.eq_symbols is None or np.array_equal(g.eq_symbols, w.eq_symbols)),
+              f"{label}: record {g} differs from {w}")
+
+
 def adaptive_phases(dev, card: str, reset, counts) -> dict:
     """Phases 12-15: the SIGNAL-steered path at the bench's adaptive shape,
     through the 3/4 front-end, against the CPU path, and with the trackers.
     Returns the adaptive frames/s by stream (median of the rounds), the
-    MCS-2 dense run's launches and kernel inputs, and the kernels held
-    against their plain versions ({kernel: (max error, input shapes)})."""
+    MCS-2 dense run's launches and kernel inputs, the kernels held
+    against their plain versions ({kernel: (max error, input shapes)}) and
+    the streams ({label: (stream, PSDUs, rates, ...)})."""
     import torch
 
     from gnuradio_wifi_imagetransfer_tpu_torch.channel import model as channel
@@ -729,7 +762,7 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
     print(f"trackers on the card: equalize LMS/COMB/STA within {eq_err:.3g} of the CPU "
           f"(1e-4); echo frame byte errors {json.dumps(errs)}; adaptive LMS records equal "
           f"the CPU path's")
-    return fps, main, held
+    return fps, main, held, streams
 
 
 class _AppSide:
@@ -2422,6 +2455,214 @@ def soak_phase(dev, card: str, reset, counts, held: dict) -> dict:
     return launches
 
 
+class EagerGraphs:
+    """An executor's graph cache that runs each function eagerly, as the
+    executors ran before their CUDA graphs: phase 36's reference, set on
+    an executor's ``graphs`` by this script (the package has no switch)."""
+
+    def __call__(self, key, fn, inputs):
+        return fn(*inputs)
+
+
+def graph_pool_mib(cache) -> str:
+    """The device memory that a GraphCache's graphs' private pools
+    hold (the allocator's snapshot), or "not measured" where the snapshot
+    names no pools."""
+    import torch
+
+    pools = {tuple(g.graph.pool()) for g in cache._graphs.values()}
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return "not measured"
+    mib = sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) in pools) / 2**20
+    return f"{mib:.1f} MiB"
+
+
+def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records, astreams,
+                parent: str | None) -> dict:
+    """Phase 36: the local executors' CUDA graphs (parallel/graphs.py)
+    against the same executors run eagerly (``EagerGraphs``) on the card.
+    Returns the launches of the graphs' replays by run."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import (
+        ChannelEstimator,
+        ExecutorConfig,
+        PhyConfig,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
+        AdaptiveStreamExecutor,
+        StreamExecutor,
+    )
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import tx
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
+
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    held: dict = {}
+    replay_launches = {}
+
+    def eager(ex):
+        ex.graphs = EagerGraphs()
+        return ex
+
+    def through_graphs(ex, x, label, want, steps, buckets=None):
+        """Two runs through ex's graphs (the first captures, the second
+        replays), each bit for bit the eager run's; each step launches
+        the detector and K2 once (and each bucket K2 once); every kernel
+        call of the replayed run held against its plain version."""
+        for run in ("capture", "replay"):
+            reset()
+            with recording(*targets) as calls:
+                got = ex.run(x)
+            launches = counts()
+            identical_records(got, want, f"{label}, {run} run through the graphs")
+            expect = {"sync_detect": steps, "sync_stats": 0}
+            if buckets is None:
+                expect |= {"viterbi_decode_many": steps, "viterbi_decode": 0}
+            else:
+                expect |= {"viterbi_decode": steps, "viterbi_decode_many": buckets}
+            check(all(launches[k] == v for k, v in expect.items())
+                  and all(len(calls[k]) == launches[k] for k in calls),
+                  f"{label}, {run} run: launches {launches}, recorded "
+                  f"{ {k: len(v) for k, v in calls.items()} }, expected {expect}")
+        merge_held(held, hold_recorded(calls, f"{label} (replayed)"))
+        replay_launches[label] = launches
+        return got
+
+    def step_times(ex):
+        ev = cuda_ms(lambda: ex.step(0), 20)
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ex.step(0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        prof = [device_profile(lambda: ex.step(0)) for _ in range(3)]
+        return ev, float(np.median(walls)), [[round(p[1], 4), p[4]] for p in prof]
+
+    # -- the fixed step at the device_step shape ---------------------------
+    ex = StreamExecutor(plan, exec_cfg=cfg, device=dev)
+    ex_e = eager(StreamExecutor(plan, exec_cfg=cfg, device=dev))
+    want = ex_e.run(stream)
+    check_records(want, "executor, eager")
+    steps = len(range(0, ex.effective_len(stream.shape[1]), TIME_BLOCKS * BLOCK))
+    got = through_graphs(ex, stream, "executor", want, steps)
+    check_records(got, "executor through the graphs")
+    mem_step = torch.cuda.memory_reserved()
+    (key, (warm_ms, capture_ms, n_calls)), = ex.graphs.stats.items()
+    print(f"graphs, device_step {CHANNELS}x{TIME_BLOCKS}x{BLOCK} sc16: a run captured "
+          f"{ex.graphs.captured} graph (warm-up {warm_ms:.1f} ms, capture {capture_ms:.1f} ms, "
+          f"{n_calls} kernel calls logged), a second run replayed it: {len(got)} records bit "
+          f"for bit the eager run's; memory_reserved {mem_step / 2**20:.1f} MiB, the graph's "
+          f"pool {graph_pool_mib(ex.graphs)} ({card})")
+    ex.stage_resident(stream)
+    ex_e.stage_resident(stream)
+    times = {"eager": [], "graph": []}
+    for label, e in (("eager", ex_e), ("graph", ex), ("graph", ex), ("eager", ex_e)):
+        ev, wall, prof = step_times(e)
+        times[label].append((ev, wall, prof))
+        print(f"  device_step {label}: {ev:.4f} ms a step (CUDA events, 20 steps), "
+              f"{wall:.4f} ms (host clock, median of 10 synchronised steps); 3 profiled "
+              f"steps [device busy ms, device activities] {prof} ({card})")
+    print_profile("device_step through its graph", device_profile(lambda: ex.step(0)))
+    ex._dev_stream = ex_e._dev_stream = None
+    del ex_e
+
+    # -- the adaptive streams of phase 12 ----------------------------------
+    span = ADAPTIVE_SHARDS * BLOCK
+    acfg = ExecutorConfig(block_size=BLOCK, time_shards=ADAPTIVE_SHARDS,
+                          max_frames_per_block=ADAPTIVE_SLOTS, wire_format="sc8")
+    fps = {}
+    for label in ("adaptive MCS 0", "adaptive mixed"):
+        x, psdus, mcs_seq = astreams[label][:3]
+        aex = AdaptiveStreamExecutor(exec_cfg=acfg, device=dev)
+        aex_e = eager(AdaptiveStreamExecutor(exec_cfg=acfg, device=dev))
+        want = aex_e.run(x)
+        steps = len(range(0, aex.effective_len(x.shape[1]), span))
+        buckets = len({(r.global_start // span, r.rate_idx, r.length) for r in want})
+        got = through_graphs(aex, x, label, want, steps, buckets)
+        check({(int(m), tuple(f)) for m, f in zip(mcs_seq, psdus)}
+              <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok},
+              f"{label} through the graphs: frames lost")
+        rates = {"eager": [], "graph": []}
+        for _ in range(ADAPTIVE_ROUNDS):
+            for kind, e in (("eager", aex_e), ("graph", aex), ("graph", aex), ("eager", aex_e)):
+                e.tracer = tracing.Tracer()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.run(x)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                stage_b = e.tracer.report()["stage_b"].seconds * 1e3
+                rates[kind].append((len(psdus) / dt, stage_b / buckets))
+        keys = [k for k in aex.graphs.stats if k[0] == "stage_b"]
+        longest = max(keys, key=lambda k: k[6][1])
+        fps[label] = {k: float(np.median([r[0] for r in v])) for k, v in rates.items()}
+        print(f"graphs, {label} ({len(psdus)} frames in {tuple(x.shape)} sc8): "
+              f"{aex.graphs.captured} graphs captured ({len(keys)} stage-B buckets, keys "
+              f"(MCS, length, padded rows) {sorted((k[1], k[2], k[6][0]) for k in keys)}); "
+              f"the longest key (MCS {longest[1]}, {longest[2]} bytes, {longest[6][0]} rows) "
+              f"warm-up {aex.graphs.stats[longest][0]:.1f} ms, capture "
+              f"{aex.graphs.stats[longest][1]:.1f} ms; records bit for bit the eager run's; "
+              f"memory_reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB, the graphs' "
+              f"pools {graph_pool_mib(aex.graphs)} ({card})")
+        for kind, v in rates.items():
+            print(f"  {label} {kind}: frames/s {[round(r[0]) for r in v]} (median "
+                  f"{fps[label][kind]:.0f}), stage-B host ms a bucket "
+                  f"{[round(r[1], 3) for r in v]} (host clock, {ADAPTIVE_ROUNDS} rounds in "
+                  f"turns; {card})")
+        del aex, aex_e
+
+    # -- the longest unrolled key: LMS on an 800-byte MCS-0 frame ------------
+    n_long = 4 * 16384
+    long_frame = np.random.default_rng(36).integers(0, 256, (1, 800), dtype=np.uint8)
+    burst = tx.transmit(long_frame, 0, device=dev).cpu().numpy()[0]
+    xl = np.zeros((1, n_long), np.complex64)
+    xl[0, 1000: 1000 + burst.size] = 0.5 * burst
+    xl += (0.005 * (np.random.default_rng(37).standard_normal(xl.shape)
+                    + 1j * np.random.default_rng(38).standard_normal(xl.shape))).astype(np.complex64)
+    lcfg = dict(exec_cfg=ExecutorConfig(block_size=16384, time_shards=4, max_frames_per_block=8,
+                                        wire_format="sc8"),
+                phy_cfg=PhyConfig(chan_est=ChannelEstimator.LMS))
+    lex = AdaptiveStreamExecutor(device=dev, **lcfg)
+    want = eager(AdaptiveStreamExecutor(device=dev, **lcfg)).run(xl)
+    check(any(np.array_equal(r.psdu, long_frame[0]) for r in want if r.parity_ok),
+          "LMS MCS 0 800 bytes: the eager run lost the frame")
+    through_graphs(lex, xl, "LMS MCS 0 800 bytes", want, 1, 1)
+    (lkey,) = [k for k in lex.graphs.stats if k[0] == "stage_b"]
+    bare = lex.graphs._graphs[lkey].graph
+    _, busy, _, _, nodes = device_profile(bare.replay)
+    print(f"graphs, LMS stage B of an 800-byte MCS-0 frame ({tx.tx_plan(0, 800).n_sym} symbols "
+          f"unrolled): warm-up {lex.graphs.stats[lkey][0]:.1f} ms, capture "
+          f"{lex.graphs.stats[lkey][1]:.1f} ms, {lex.graphs.stats[lkey][2]} kernel calls logged; "
+          f"one bare replay {nodes} device activities (its kernel and copy nodes), "
+          f"{busy:.3f} ms device busy; the graphs' pools {graph_pool_mib(lex.graphs)} "
+          f"({card})")
+
+    shapes = {k: sorted({str(s) for s in v[1]}) for k, v in held.items()}
+    print(f"graphs: every kernel call of the replayed runs held against its plain version: "
+          f"max error {json.dumps({k: v[0] for k, v in held.items()})}; inputs "
+          f"{json.dumps(shapes)}")
+    print(f"graphs ({card}): device_step ms [events, host clock] eager "
+          f"{[[round(t[0], 4), round(t[1], 4)] for t in times['eager']]}, graph "
+          f"{[[round(t[0], 4), round(t[1], 4)] for t in times['graph']]}; adaptive frames/s "
+          f"{json.dumps({k: {kk: round(vv, 1) for kk, vv in v.items()} for k, v in fps.items()})}")
+
+    if parent:
+        # tools/step_ab.py over the parent checkout and this tree, in turns
+        tool = os.path.join(HERE, "tools", "step_ab.py")
+        for root in (parent, HERE, HERE, parent):
+            r = subprocess.run([sys.executable, tool, root], capture_output=True, text=True,
+                               timeout=300)
+            check(r.returncode == 0, f"step_ab {root}: {r.stderr[-2000:]}")
+            print(f"  step_ab {'parent' if root == parent else 'this tree'}: "
+                  f"{r.stdout.strip().splitlines()[-1]}")
+    return replay_launches
+
+
 def main() -> None:
     import argparse
 
@@ -2429,7 +2670,8 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch + CUDA port.")
     ap.add_argument("--parent", help="another checkout's root: time its K3 and K4 beside "
-                                     "this tree's in phase 17, in turns")
+                                     "this tree's in phase 17, and its device_step "
+                                     "(tools/step_ab.py) in phase 36, in turns")
     ap.add_argument("--fir-times", metavar="ROOT",
                     help="only time the K3 and K4 of the checkout at ROOT")
     args = ap.parse_args()
@@ -2846,7 +3088,7 @@ def main() -> None:
           f"launches {json.dumps(ppm_launches)}")
     del ex_ppm
 
-    fps, amain, held = adaptive_phases(dev, card, reset, counts)
+    fps, amain, held, astreams = adaptive_phases(dev, card, reset, counts)
 
     # -- 16. front-end pass rates ----------------------------------------
     frng = np.random.default_rng(5)
@@ -3005,6 +3247,11 @@ def main() -> None:
     waterfall_launches = waterfall_phase(dev, card, reset, counts, held)
     soak_launches = soak_phase(dev, card, reset, counts, held)
 
+    # -- 36. the local executors' CUDA graphs ----------------------------------
+    graph_launches = graph_phase(dev, card, reset, counts, stream, plan, cfg, check_records,
+                                 astreams, parent)
+    del astreams
+
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
@@ -3058,7 +3305,8 @@ def main() -> None:
                     "mesh_launches": {k: v[name] for k, v in mesh_launches.items()},
                     "multichip_launches": {k: v[name] for k, v in multichip_launches.items()},
                     "waterfall_launches": waterfall_launches[name],
-                    "soak_launches": soak_launches[name]})
+                    "soak_launches": soak_launches[name],
+                    "graph_launches": {k: v[name] for k, v in graph_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

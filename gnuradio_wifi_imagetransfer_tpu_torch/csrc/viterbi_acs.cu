@@ -268,8 +268,10 @@ int launch(const int64_t* desc, int count, int64_t max_smem, cudaStream_t stream
   }
   if (blocks == 0) return 0;
   if (smem > 48 * 1024) {
+    // always the largest size: a smaller launch must not lower the limit
+    // below what a CUDA graph captured from a larger one replays with
     const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(max_smem));
     if (e != cudaSuccess) return e;
   }
   viterbi_kernel<<<blocks, 32, smem, stream>>>(tab);

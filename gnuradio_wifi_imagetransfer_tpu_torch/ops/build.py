@@ -12,10 +12,17 @@ one FMA: the Viterbi kernel must round every add and multiply exactly as
 the plain version does to break metric ties the same way. The FIR and
 resampler kernels (``csrc/fir.cu``) spell their multiply-adds as
 ``__fmaf_rn`` for that reason.
+
+Each kernel wrapper counts its launches on itself (``wrapper.launches``)
+through ``count_launch``. While a thread captures a CUDA graph
+(``parallel/graphs.py``), ``capture_log`` turns that count into an entry
+of the capture's log: the graph counts its logged launches at every
+replay instead, so a capture itself counts nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +31,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -116,3 +124,35 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().gwt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+_capture = threading.local()
+
+
+def count_launch(wrapper, args: tuple) -> None:
+    """Where a kernel wrapper launches its kernel: adds one to
+    ``wrapper.launches`` (the wrapper as its module attribute names it, so
+    that ``utils.tracing.recording`` sees the count); while this thread
+    captures a CUDA graph, logs (wrapper, args), the call's positional
+    arguments, for the graph instead."""
+    log = getattr(_capture, "log", None)
+    if log is None:
+        wrapper.launches += 1
+    else:
+        log.append((wrapper, args))
+
+
+def capturing() -> bool:
+    """Whether this thread is capturing a CUDA graph (``capture_log``)."""
+    return getattr(_capture, "log", None) is not None
+
+
+@contextlib.contextmanager
+def capture_log(log: list):
+    """Within the block, this thread's kernel launches are appended to
+    ``log`` and not counted (see ``count_launch``)."""
+    _capture.log = log
+    try:
+        yield log
+    finally:
+        _capture.log = None

@@ -119,7 +119,7 @@ def fir_filter(x: torch.Tensor, taps) -> torch.Tensor:
         _ptr(x), h.data_ptr(), _ptr(y), x.numel() // n, n, h.numel(), int(x.is_complex()),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fir_filter")
-    fir_filter.launches += 1
+    build.count_launch(fir_filter, (x, taps))
     return y
 
 
@@ -253,7 +253,7 @@ def polyphase_resample(x: torch.Tensor, interp: int, decim: int, taps) -> torch.
         interp, decim, kp, kc, tile, span_bytes, int(in_smem), int(x.is_complex()),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "polyphase_resample")
-    polyphase_resample.launches += 1
+    build.count_launch(polyphase_resample, (x, interp, decim, taps))
     return y
 
 

@@ -102,7 +102,7 @@ def sync_stats(x: torch.Tensor):
         p.data_ptr(), c.data_ptr(), rows, n,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "sync_stats")
-    sync_stats.launches += 1
+    build.count_launch(sync_stats, (x,))
     return a, p, c
 
 
@@ -206,7 +206,8 @@ def sync_detect(x: torch.Tensor, max_frames: int, threshold: float, min_plateau:
     buf = _detect_buffer(rows, n, max_frames, x.device)
     if rows:
         _detect_launch(x, max_frames, threshold, min_plateau, search_lo, search_hi, buf)
-        sync_detect.launches += 1
+        build.count_launch(sync_detect, (x, max_frames, threshold, min_plateau, search_lo,
+                                         search_hi))
     starts, valid, a, ratio = _detect_outputs(buf, rows, max_frames)
     cfo = torch.where(valid, torch.angle(a) / 16.0, 0.0)
     return tuple(v.reshape(lead + (max_frames,)) for v in (starts, valid, cfo, ratio))

@@ -26,6 +26,7 @@ import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import build, roofline
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 
 @functools.cache
@@ -39,9 +40,9 @@ def _np_tables():
 def viterbi_decode_plain(llr: torch.Tensor, terminated: bool = True) -> torch.Tensor:
     """(B, n, 2) float32 LLR pairs -> (B, n) uint8 decoded bits."""
     dev = llr.device
-    prev_state, prev_bit, out0, out1 = (torch.as_tensor(a, device=dev)
-                                        for a in _np_tables())
-    prev_state = prev_state.long()
+    prev_state, prev_bit, out0, out1 = (
+        device_table(_np_table, i, device=dev, dtype=torch.long if i == 0 else None)
+        for i in range(4))
     b, n, _ = llr.shape
     pm = torch.full((b, params.N_STATES), -1e30, dtype=torch.float32, device=dev)
     pm[:, 0] = 0.0                                           # start in state 0
@@ -65,6 +66,10 @@ def viterbi_decode_plain(llr: torch.Tensor, terminated: bool = True) -> torch.Te
         bits[:, i] = prev_bit[state, k].to(torch.uint8)
         state = prev_state[state, k]
     return bits
+
+
+def _np_table(i: int) -> np.ndarray:
+    return _np_tables()[i]
 
 
 @functools.cache
@@ -100,7 +105,8 @@ def viterbi_decode(llr: torch.Tensor, terminated: bool = True) -> torch.Tensor:
     if llr.device.type == "cpu":
         return viterbi_decode_plain(llr, terminated)
     bits, launched = _decode_segments([llr], [bool(terminated)], "viterbi_decode")
-    viterbi_decode.launches += launched
+    if launched:
+        build.count_launch(viterbi_decode, (llr, terminated))
     return bits[0]
 
 
@@ -125,13 +131,14 @@ def viterbi_decode_many(llrs, terminated) -> list[torch.Tensor]:
     if all(v.device.type == "cpu" for v in llrs):
         return viterbi_decode_many_plain(llrs, terminated)
     bits, launched = _decode_segments(llrs, terminated, "viterbi_decode_many")
-    viterbi_decode_many.launches += launched
+    if launched:
+        build.count_launch(viterbi_decode_many, (llrs, terminated))
     return bits
 
 
 def _decode_segments(llrs, terminated, name: str):
-    """The one launch behind both wrappers. Returns (bits, 1 if it
-    launched else 0)."""
+    """The one launch behind both wrappers. Returns (bits, whether it
+    launched)."""
     for v in llrs:
         _check(v, name)
     dev = llrs[0].device
@@ -145,7 +152,7 @@ def _decode_segments(llrs, terminated, name: str):
     flat = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
     bits = [b.view(v.shape[:2]) for b, v in zip(flat.split(sizes), llrs)]
     if not any(sizes):
-        return bits, 0
+        return bits, False
     _check_tables()
     desc = (ctypes.c_int64 * (5 * len(llrs)))(*(
         x for v, b, t in zip(llrs, bits, terminated)
@@ -153,7 +160,7 @@ def _decode_segments(llrs, terminated, name: str):
     err = lib.gwt_viterbi_decode_segments(desc, len(llrs),
                                           torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
-    return bits, 1
+    return bits, True
 
 
 viterbi_decode_many.launches = 0

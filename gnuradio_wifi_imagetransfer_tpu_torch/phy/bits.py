@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 # ---------------------------------------------------------------------------
 # Scrambler (17.3.5.4)
@@ -44,14 +45,18 @@ def _windows() -> np.ndarray:
     return np.stack([np.roll(seq, -i)[:7] for i in range(127)]).astype(np.int64)
 
 
+def _cycle_part(i: int) -> np.ndarray:
+    """``_scrambler_cycle()[i]`` (0: the cycle, 1: the phase of each state)."""
+    return _scrambler_cycle()[i]
+
+
 def scrambler_bits(n: int, seed, device=None) -> torch.Tensor:
     """First ``n`` scrambler output bits for a 7-bit ``seed``: an int gives
     (n,); a tensor of seeds gives seed.shape + (n,)."""
-    seq, phase = _scrambler_cycle()
     seed = torch.as_tensor(seed, dtype=torch.long, device=device)
-    start = torch.as_tensor(phase, device=seed.device)[seed]
+    start = device_table(_cycle_part, 1, device=seed.device)[seed]
     idx = (torch.arange(n, device=seed.device) + start[..., None]) % 127
-    return torch.as_tensor(seq, device=seed.device)[idx]
+    return device_table(_cycle_part, 0, device=seed.device)[idx]
 
 
 def scramble(bits: torch.Tensor, seed) -> torch.Tensor:
@@ -64,14 +69,13 @@ def descramble(bits: torch.Tensor) -> torch.Tensor:
     """Self-synchronizing descramble: the 16-bit SERVICE field is sent as
     zeros, so the first 7 received bits are the scrambler output and fix
     its phase. bits: (..., n) -> same shape."""
-    seq, _ = _scrambler_cycle()
     n = bits.shape[-1]
-    w = torch.as_tensor(_windows(), device=bits.device)                # (127, 7)
+    w = device_table(_windows, device=bits.device)                     # (127, 7)
     first7 = bits[..., :7].long()
     match = (first7[..., None, :] == w).all(dim=-1)                    # (..., 127)
     phase = torch.argmax(match.to(torch.uint8), dim=-1)                # first match
     idx = (torch.arange(n, device=bits.device) + phase[..., None]) % 127
-    return bits ^ torch.as_tensor(seq, device=bits.device)[idx].to(bits.dtype)
+    return bits ^ device_table(_cycle_part, 0, device=bits.device)[idx].to(bits.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -112,14 +116,14 @@ def puncture_indices(rate: str, n_mother: int) -> np.ndarray:
 
 def puncture(coded: torch.Tensor, rate: str) -> torch.Tensor:
     """Gather surviving bits: (..., 2n) -> (..., n_kept)."""
-    idx = torch.as_tensor(puncture_indices(rate, coded.shape[-1]), device=coded.device)
+    idx = device_table(puncture_indices, rate, coded.shape[-1], device=coded.device)
     return coded.index_select(-1, idx)
 
 
 def depuncture(llrs: torch.Tensor, rate: str, n_mother: int) -> torch.Tensor:
     """Scatter received LLRs back to mother-code positions; punctured
     positions get LLR 0 (erasure). (..., n_kept) -> (..., n_mother)."""
-    idx = torch.as_tensor(puncture_indices(rate, n_mother), device=llrs.device)
+    idx = device_table(puncture_indices, rate, n_mother, device=llrs.device)
     out = llrs.new_zeros(llrs.shape[:-1] + (n_mother,))
     out[..., idx] = llrs
     return out
@@ -142,7 +146,7 @@ def _tiled_perm(mcs: int, n_sym: int, inverse: bool) -> np.ndarray:
 
 def _permute(vals: torch.Tensor, mcs: int, inverse: bool) -> torch.Tensor:
     n_sym = vals.shape[-1] // int(params.MCS_N_CBPS[mcs])
-    idx = torch.as_tensor(_tiled_perm(mcs, n_sym, inverse), device=vals.device)
+    idx = device_table(_tiled_perm, mcs, n_sym, inverse, device=vals.device)
     return vals.index_select(-1, idx)
 
 

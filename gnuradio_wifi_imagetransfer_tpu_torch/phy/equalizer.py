@@ -32,20 +32,21 @@ import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator, PhyConfig
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import mapping, params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table, param_table
 
 # the tracker gains' defaults are PhyConfig's, the one source of them
 _GAINS = PhyConfig()
 
 
-def _idx(a, device) -> torch.Tensor:
-    return torch.as_tensor(a, device=device).long()
+def _idx(name: str, device) -> torch.Tensor:
+    return param_table(name, device, torch.long)
 
 
 def ls_estimate(ltf1: torch.Tensor, ltf2: torch.Tensor) -> torch.Tensor:
     """LS channel estimate on the 52 used carriers from the two LTF spectra
     (..., 64) -> H (..., 52) complex64."""
-    used = _idx(params.USED_BINS, ltf1.device)
-    ref = torch.as_tensor(params.LTF_USED, device=ltf1.device)   # +-1 on used carriers
+    used = _idx("USED_BINS", ltf1.device)
+    ref = param_table("LTF_USED", ltf1.device)                  # +-1 on used carriers
     y = 0.5 * (ltf1[..., used] + ltf2[..., used])
     return (y * ref).to(torch.complex64)                        # ref is +-1 => y/ref
 
@@ -55,8 +56,8 @@ def _pilot_phase(y_used: torch.Tensor, h: torch.Tensor, polarity: torch.Tensor) 
 
     y_used, h: (..., 52); polarity broadcastable to (...,).
     """
-    p_idx = _idx(params.PILOT_IN_USED, y_used.device)
-    ref = polarity[..., None] * torch.as_tensor(params.PILOT_PATTERN, device=y_used.device)
+    p_idx = _idx("PILOT_IN_USED", y_used.device)
+    ref = polarity[..., None] * param_table("PILOT_PATTERN", y_used.device)
     corr = (y_used[..., p_idx] * torch.conj(h[..., p_idx]) * ref).sum(dim=-1)
     return corr / torch.clamp(corr.abs(), min=1e-12)
 
@@ -113,12 +114,12 @@ def equalize(
     """
     algo = ChannelEstimator(algo)
     dev = sym_freq.device
-    d_idx = _idx(params.DATA_IN_USED, dev)
-    p_idx = _idx(params.PILOT_IN_USED, dev)
-    pilot_pat = torch.as_tensor(params.PILOT_PATTERN, device=dev)
-    y_all = sym_freq[..., _idx(params.USED_BINS, dev)]           # (..., S, 52)
+    d_idx = _idx("DATA_IN_USED", dev)
+    p_idx = _idx("PILOT_IN_USED", dev)
+    pilot_pat = param_table("PILOT_PATTERN", dev)
+    y_all = sym_freq[..., _idx("USED_BINS", dev)]                # (..., S, 52)
     s = y_all.shape[-2]
-    pol = torch.as_tensor(params.POLARITY, device=dev)[
+    pol = param_table("POLARITY", dev)[
         (symbol_index0 + torch.arange(s, device=dev)) % 127]    # (S,)
     h0 = h0.to(torch.complex64)
 
@@ -135,7 +136,7 @@ def equalize(
         ref = pol[:, None] * pilot_pat                           # (S, 4)
         h_p = h0[..., None, :][..., p_idx]                       # (..., 1, 4)
         g_p = y_all[..., p_idx] / _safe(h_p * ref)               # (..., S, 4)
-        w = torch.as_tensor(_comb_interp_matrix(), device=dev).to(torch.complex64)
+        w = device_table(_comb_interp_matrix, device=dev, dtype=torch.complex64)
         h_t = h0[..., None, :] * torch.matmul(g_p, w.T)          # (..., S, 52)
         eq = y_all / _safe(h_t)
         return eq[..., d_idx], (h_t[..., d_idx].abs() ** 2).to(torch.float32)

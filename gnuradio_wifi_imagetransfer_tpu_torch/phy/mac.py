@@ -21,6 +21,7 @@ framer otherwise; both give the same bytes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import struct
 import zlib
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 HEADER_LEN = 24
 FCS_LEN = 4
@@ -116,11 +118,16 @@ def frame_batch_numpy(payloads: np.ndarray, seq0: int = 0,
     return out
 
 
+@functools.cache
+def _crc32_table64() -> np.ndarray:
+    return params.crc32_table().astype(np.int64)
+
+
 def crc32(data: torch.Tensor) -> torch.Tensor:
     """Batched CRC-32 (IEEE, reflected): (..., n) uint8 -> (...,) int64
     holding the uint32 value, on data's device. The whole batch advances
     one byte a step, so the loop is as long as a frame."""
-    table = torch.as_tensor(params.crc32_table().astype(np.int64), device=data.device)
+    table = device_table(_crc32_table64, device=data.device)
     x = data.to(torch.int64)
     crc = torch.full(x.shape[:-1], _MASK32, dtype=torch.int64, device=data.device)
     for i in range(x.shape[-1]):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 
 @functools.cache
@@ -25,7 +26,7 @@ def _point_bits(n_bpsc: int) -> np.ndarray:
 
 
 def _points(n_bpsc: int, device) -> torch.Tensor:
-    return torch.as_tensor(params.constellation(n_bpsc), device=device)
+    return device_table(params.constellation, n_bpsc, device=device)
 
 
 def map_bits(bits: torch.Tensor, mcs: int) -> torch.Tensor:
@@ -42,8 +43,9 @@ def demap_llr(symbols: torch.Tensor, mcs: int, csi: torch.Tensor | None = None) 
     (..., n*n_bpsc) float32 (llr > 0 favours bit 1)."""
     n_bpsc = int(params.MCS_N_BPSC[mcs])
     points = _points(n_bpsc, symbols.device)                      # (M,)
-    mask1 = torch.as_tensor(_point_bits(n_bpsc) == 1, device=symbols.device
-                            ).to(torch.float32)                   # (M, n_bpsc)
+    # the labels' bits are 0 or 1: as float32 they are the bit-1 mask
+    mask1 = device_table(_point_bits, n_bpsc, device=symbols.device,
+                         dtype=torch.float32)                     # (M, n_bpsc)
     d = (symbols[..., None] - points).abs() ** 2                  # (..., n, M)
     big = 1e9
     d0 = (d[..., None] + big * mask1).amin(dim=-2)                # (..., n, n_bpsc)
@@ -71,6 +73,6 @@ def demap_hard(symbols: torch.Tensor, mcs: int) -> torch.Tensor:
     """Nearest-point hard decisions -> (..., n*n_bpsc) bits (uint8); a
     symbol halfway between points takes the first, as ``decide``."""
     n_bpsc = int(params.MCS_N_BPSC[mcs])
-    pbits = torch.as_tensor(_point_bits(n_bpsc), device=symbols.device)
+    pbits = device_table(_point_bits, n_bpsc, device=symbols.device)
     bits = pbits[_nearest(symbols, n_bpsc)]                       # (..., n, n_bpsc)
     return bits.reshape(symbols.shape[:-1] + (symbols.shape[-1] * n_bpsc,)).to(torch.uint8)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table, param_table
 
 
 def allocate_carriers(data_syms: torch.Tensor, symbol_index0: int = 0) -> torch.Tensor:
@@ -27,12 +28,11 @@ def allocate_carriers(data_syms: torch.Tensor, symbol_index0: int = 0) -> torch.
     n_sym = data_syms.shape[-2]
     out = torch.zeros(data_syms.shape[:-1] + (params.N_FFT,), dtype=torch.complex64,
                       device=dev)
-    out[..., torch.as_tensor(params.DATA_BINS, device=dev).long()] = (
-        data_syms.to(torch.complex64))
+    out[..., param_table("DATA_BINS", dev, torch.long)] = data_syms.to(torch.complex64)
     pol_idx = (symbol_index0 + torch.arange(n_sym, device=dev)) % 127
-    polarity = torch.as_tensor(params.POLARITY, device=dev)[pol_idx]       # (n_sym,)
-    pilots = polarity[:, None] * torch.as_tensor(params.PILOT_PATTERN, device=dev)
-    out[..., torch.as_tensor(params.PILOT_BINS, device=dev).long()] = (
+    polarity = param_table("POLARITY", dev)[pol_idx]                        # (n_sym,)
+    pilots = polarity[:, None] * param_table("PILOT_PATTERN", dev)
+    out[..., param_table("PILOT_BINS", dev, torch.long)] = (
         pilots.to(torch.complex64))
     return out
 
@@ -85,7 +85,7 @@ def assemble_burst(sig_freq: torch.Tensor, data_freq: torch.Tensor) -> torch.Ten
     sig_freq: (..., 1, 64); data_freq: (..., n_sym, 64).
     Returns (..., (4+1+n_sym)*80 + 1) complex64 samples.
     """
-    sync = torch.as_tensor(sync_time_symbols(), device=sig_freq.device).expand(
+    sync = device_table(sync_time_symbols, device=sig_freq.device).expand(
         sig_freq.shape[:-2] + (4, params.N_FFT))
     body = ifft_symbols(torch.cat([sig_freq, data_freq], dim=-2))
     return add_cyclic_prefix(torch.cat([sync, body], dim=-2))

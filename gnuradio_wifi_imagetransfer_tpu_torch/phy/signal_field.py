@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import bits as bitops
-from gnuradio_wifi_imagetransfer_tpu_torch.phy import mapping, params, viterbi
+from gnuradio_wifi_imagetransfer_tpu_torch.phy import mapping, viterbi
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import param_table
 
 _BPSK_MCS = 0  # interleaver/mapper run with BPSK tables (NCBPS=48)
 
@@ -20,8 +21,7 @@ def signal_bits(mcs: int, length: torch.Tensor) -> torch.Tensor:
     """Uncoded 24 SIGNAL bits. length: (...,) PSDU byte count."""
     dev = length.device
     batch = length.shape
-    rate_b = torch.as_tensor(params.MCS_RATE_BITS[mcs], device=dev).to(
-        torch.uint8).expand(batch + (4,))
+    rate_b = param_table("MCS_RATE_BITS", dev, torch.uint8)[mcs].expand(batch + (4,))
     reserved = torch.zeros(batch + (1,), dtype=torch.uint8, device=dev)
     len_b = ((length[..., None].long() >> torch.arange(12, device=dev)) & 1).to(torch.uint8)
     parity = (rate_b.long().sum(-1) + len_b.long().sum(-1)) % 2
@@ -47,7 +47,7 @@ def parse(raw: torch.Tensor) -> dict:
     0..7, or -1 for invalid RATE bits), length (PSDU bytes), parity_ok
     (even parity and zero tail) and raw_bits."""
     rate_bits = raw[..., 0:4].long()
-    table = torch.as_tensor(params.MCS_RATE_BITS, device=raw.device).long()   # (8, 4)
+    table = param_table("MCS_RATE_BITS", raw.device, torch.long)             # (8, 4)
     match = (rate_bits[..., None, :] == table).all(dim=-1)       # (..., 8)
     rate_idx = torch.where(match.any(dim=-1),
                            torch.argmax(match.to(torch.uint8), dim=-1), -1)

@@ -25,7 +25,7 @@ import torch
 from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator, PhyConfig
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as _stats
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
-from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import param_table, resolve
 
 # Windows are cut MARGIN samples before the detected edge; the edge lies
 # inside the 160-sample STF, so preamble + frame always fit.
@@ -94,7 +94,7 @@ def _ltf_locate(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """
     t_span = LTF_SEARCH
     win = w[..., :t_span + 63].unfold(-1, 64, 1)                      # (..., T, 64)
-    ltf = torch.conj(torch.as_tensor(params.LTF_TIME, device=w.device))
+    ltf = torch.conj(param_table("LTF_TIME", w.device))
     corr = torch.matmul(win, ltf).abs()                               # (..., T)
     score = corr[..., : t_span - 64] + corr[..., 64:]
     q1 = torch.argmax(score, dim=-1)                                  # first max

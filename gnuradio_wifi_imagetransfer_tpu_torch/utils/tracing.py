@@ -39,13 +39,16 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import threading
 import time
 
 import numpy as np
 import torch
 
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 
 @dataclasses.dataclass
@@ -124,8 +127,8 @@ def evm_snr_db(eq_symbols: torch.Tensor, mcs: int) -> torch.Tensor:
     """Per-frame SNR estimate from equalized data symbols (..., S, 48):
     P_signal / P_error against the nearest constellation point, in dB,
     reduced over the trailing (symbol, carrier) axes -> (...,) float32."""
-    points = torch.as_tensor(params.constellation(int(params.MCS_N_BPSC[mcs])),
-                             device=eq_symbols.device)
+    points = device_table(params.constellation, int(params.MCS_N_BPSC[mcs]),
+                          device=eq_symbols.device)
     idx = torch.argmin((eq_symbols[..., None] - points).abs() ** 2, dim=-1)
     nearest = points[idx]
     err = ((eq_symbols - nearest).abs() ** 2).mean(dim=(-2, -1))
@@ -367,8 +370,13 @@ class _Recorded:
     def __init__(self, fn, log: list, keep: int | None = None):
         self.fn, self.log, self.keep = fn, log, keep
 
+    def wants(self) -> bool:
+        return self.keep is None or len(self.log) < self.keep
+
     def __call__(self, *args, **kw):
-        if self.keep is None or len(self.log) < self.keep:
+        # a call inside a CUDA graph's capture launches nothing: its
+        # graph's replays hand their inputs over (``replayed``)
+        if self.wants() and not build.capturing():
             self.log.append((args, kw))
         return self.fn(*args, **kw)
 
@@ -389,7 +397,8 @@ def recording(*targets, keep: int | None = None):
     (its launch count included). Yields {name: [(args, kwargs), ...]}.
     Callers that are to be recorded reach the kernel through its module
     (``viterbi_acs.viterbi_decode_many``), not through a name bound when
-    they were imported."""
+    they were imported. A CUDA graph's replay of a kernel call counts and
+    records it too (``replayed``)."""
     calls = {name: [] for _, name in targets}
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name, fn in saved:
@@ -399,3 +408,31 @@ def recording(*targets, keep: int | None = None):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def _cloned(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_cloned(x) for x in v)
+    return v
+
+
+def replayed(wrapper, args: tuple) -> None:
+    """A CUDA graph replayed a kernel call that its capture logged
+    (``ops.build.count_launch``): adds one to the wrapper's launches and
+    hands the call's inputs to each active ``recording`` of the wrapper.
+    ``args`` are the graph's own tensors, which hold this replay's inputs
+    once it has run, so they are cloned (on the current stream, after the
+    replay)."""
+    while isinstance(wrapper, _Recorded):
+        wrapper = wrapper.fn
+    current = getattr(sys.modules[wrapper.__module__], wrapper.__name__)
+    current.launches += 1
+    inputs = None
+    rec = current
+    while isinstance(rec, _Recorded):
+        if rec.wants():
+            inputs = _cloned(args) if inputs is None else inputs
+            rec.log.append((inputs, {}))
+        rec = rec.fn
