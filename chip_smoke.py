@@ -242,14 +242,33 @@ holds each hand-written kernel against its plain PyTorch version:
      symbols unrolled into one graph): capture ms and the device
      activities of one bare replay; with ``--parent``, ``tools/step_ab.py``
      over both checkouts in turns;
+ 37. the serving programs' CUDA graphs (a LoopbackRadio group, a TxRadio
+     group, the codec's encode and decode) against the same objects run
+     eagerly (``EagerGraphs`` on their ``graphs``), in turns (eager,
+     graph, graph, eager): LoopbackRadio at its defaults on phase 18's
+     Mode-2 pieces at 1 ms (every piece, the canvas bit for bit, pieces/s,
+     batch times; each group launching the detector and K2 once); the
+     first recorded batches of that run again through both, at the
+     defaults, with probes at MCS 2 and after a retune (MCS 5, 30 dB,
+     2e-6, STA), every group's outputs and payloads bit for bit and every
+     kernel call of the replays held against its plain version; TxRadio
+     on the same batches, its samples bit for bit; ``JSCE.packaged()`` on
+     phase 21's crops, the latent and both users' reconstructions bit for
+     bit, then Mode 1 over LoopbackRadio at 1 ms into
+     FeatureMapReceiverApp (the latent bit for bit, pieces/s, decodes/s,
+     msg2img ms); for each a batch's or call's host ms, the group's or
+     codec call's ms by CUDA events, device busy and activities of a
+     profiled one, capture ms per key, the graphs' pools and
+     ``memory_reserved``;
 then one JSON line of kernel timings, bounds and launch counts (each
 kernel's ``radio_launches`` are those of phases 18 and 19, its
 ``app_launches`` those of 20 and 21, ``sv_launches`` phase 23's,
 ``train_launches`` phase 25's, ``dqn_launches`` phase 26's,
 ``zoo_launches`` phase 27's, ``mesh_launches`` those of phases 28-30,
 ``multichip_launches`` rank 0's of each leg of phase 32,
-``waterfall_launches`` phase 34's, ``soak_launches`` phase 35's and
-``graph_launches`` the replayed runs' of phase 36).
+``waterfall_launches`` phase 34's, ``soak_launches`` phase 35's,
+``graph_launches`` the replayed runs' of phase 36 and
+``serving_graph_launches`` the graph runs' of phase 37).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -261,8 +280,8 @@ radio run of 18-19, the first run of each app phase, 20-21, the SV fading
 receives of 23, the training script of 25, the controller's run of 26,
 the zoo's runs of 27, each mesh run of 28-29, the data-parallel
 trainer of 30, on every rank of phase 32, each leg's checked run, the
-card's decodes of 34, the soak of 35 and each run of 36) and
-read just after; launches made to compare or
+card's decodes of 34, the soak of 35, each run of 36 and each graph
+run of 37) and read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
 run none of the four kernels (their convolutions are cuDNN's, their
 products cuBLAS's), so their counts must stay 0.
@@ -270,9 +289,11 @@ A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
 (stage A's SIGNAL trellises), and stage B the segmented one once a
-(rate, length) bucket (1 on a dense stream, 8 on the mixed one). On the
-card the local executors replay CUDA graphs, and a replay counts each
-kernel call its capture logged, once.
+(rate, length) bucket (1 on a dense stream, 8 on the mixed one); a
+loopback group launches the detector once and the segmented Viterbi
+kernel once. On the card the local executors, the radios and the codec
+replay CUDA graphs, and a replay counts each kernel call its capture
+logged, once.
 This script keeps the phases; what other readers share is the package's:
 the shapes, streams, waterfall and soak (``utils/scenarios.py``), the
 card timers and call recording (``utils/tracing.py``), the holds against
@@ -395,6 +416,12 @@ CODEC_LATENT_ATOL = 1e-4             # the card's latent against the CPU path's
 # short of it by PSNR_MARGIN_DB
 HOLDOUT_CROPS, HOLDOUT_SEED = 16, 123
 PSNR_MARGIN_DB = 0.5
+
+# the serving graphs (phase 37): the recorded batches of a LoopbackRadio
+# run replayed against the eager radio, and the repetitions of a timed
+# batch (host clock) or group or codec call (CUDA events)
+SERVING_BATCHES = 24
+SERVING_TIMED = 20
 
 # the SV fading run (phase 23), tests/test_channel.py:63-81 on the card: 2
 # frames of 100 bytes at MCS 7, six SV realisations (6 taps, ray decay
@@ -1015,7 +1042,8 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
           f"({launches['sync_detect'] / batches:.2f} sync_detect and "
           f"{launches['viterbi_decode_many'] / batches:.2f} viterbi_decode_many a batch over "
           f"{batches} batches); held "
-          f"{json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} ({card})")
+          f"{json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})}; "
+          f"{graph_stats(radio.graphs)} ({card})")
     again("radio-loopback", f"one batch of {len(passes.args[0])} datagrams", radio,
           lambda: radio._process(*passes.args))
     phase_launches = dict(launches)
@@ -1047,7 +1075,9 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
           f"after {half} pieces: {n}/{n} pieces, canvas bit for bit; wall {wall:.2f} s; "
           f"probes: {retune.constellation.points().shape[0]} points, PSD max "
           f"{retune.spectrum.psd_db().max():.1f} dB, SNR {retune.snr_probe.snr_db():.1f} dB; "
-          f"launches {json.dumps(launches)} ({card})")
+          f"launches {json.dumps(launches)}; {graph_stats(retune.graphs)}, capture ms by key "
+          f"(MCS, MPDU bytes, group, equalizer, probes) "
+          f"{ {k: round(v[1], 1) for k, v in retune.graphs.stats.items()} } ({card})")
     phases["radio-loopback"] = {k: v + launches[k] for k, v in phase_launches.items()}
 
     # -- 19. TxRadio into RxRadio ------------------------------------------
@@ -1083,7 +1113,8 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
           f"({launches['sync_detect'] / chunks:.2f} sync_detect, "
           f"{launches['viterbi_decode_many'] / chunks:.2f} viterbi_decode_many a chunk over "
           f"{chunks} chunks); held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})}"
-          f"; executor Tracer [calls, ms] {json.dumps(stages)} ({card})")
+          f"; executor Tracer [calls, ms] {json.dumps(stages)}; TxRadio "
+          f"{graph_stats(txr.graphs)} ({card})")
     again("radio-split", f"one chunk of {passes.args[0].size} samples", rxr,
           lambda: rxr._process(passes.args[0], 0, set()))
     phases["radio-split"] = launches
@@ -1391,8 +1422,8 @@ def app_phases(dev, card: str, reset, counts, held: dict) -> tuple[dict, dict, o
           f"{dec_ms.size} ({n_dec / wall:.1f}/s until whole), msg2img in the receive thread "
           f"median {np.median(dec_ms):.2f} ms (p90 {np.percentile(dec_ms, 90):.2f}); the last "
           f"reconstruction equals msg2img of the sent latent; launches until whole "
-          f"{json.dumps(launches)}; held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})} "
-          f"({card})")
+          f"{json.dumps(launches)}; held {json.dumps({k: [v[0], len(v[1])] for k, v in out.items()})}; "
+          f"codec {graph_stats(codec.graphs)} ({card})")
     print(f"codec on the card, 240 x 240, c = 128, float32 without TF32: img2msg (2 users) "
           f"{enc_ms:.3f} ms, msg2img {d_ms:.3f} ms (CUDA events, median of {CODEC_TIMED}; "
           f"{card})")
@@ -2456,12 +2487,41 @@ def soak_phase(dev, card: str, reset, counts, held: dict) -> dict:
 
 
 class EagerGraphs:
-    """An executor's graph cache that runs each function eagerly, as the
-    executors ran before their CUDA graphs: phase 36's reference, set on
-    an executor's ``graphs`` by this script (the package has no switch)."""
+    """A graph cache that runs each function eagerly, as the executors,
+    the radios and the codec ran before their CUDA graphs: phases 36's and
+    37's reference, set on their ``graphs`` by this script (the package
+    has no switch). The caller has seeded the generators."""
 
-    def __call__(self, key, fn, inputs):
+    def __call__(self, key, fn, inputs, generators=()):
         return fn(*inputs)
+
+
+class _GroupSpy:
+    """A radio's or codec's graph cache seen from outside: each call's key
+    (and, with ``keep``, a copy of its output) goes to a list, and the call
+    to ``inner`` (a GraphCache or EagerGraphs)."""
+
+    def __init__(self, inner, keep: bool = False):
+        self.inner, self.keep = inner, keep
+        self.keys, self.outs = [], []
+
+    def __call__(self, key, fn, inputs, generators=()):
+        out = self.inner(key, fn, inputs, generators)
+        self.keys.append(key)
+        if self.keep:
+            self.outs.append(out.clone())
+        return out
+
+
+def graph_stats(cache) -> str:
+    """A GraphCache's captures: warm-up and capture ms (host clock) a key,
+    median and largest, and the graphs' pools."""
+    if not cache.stats:
+        return "no graphs"
+    warm, cap = (np.array([v[i] for v in cache.stats.values()]) for i in (0, 1))
+    return (f"{cache.captured} graphs captured, {len(cache)} held; warm-up ms a key median "
+            f"{np.median(warm):.1f} (largest {warm.max():.1f}), capture ms median "
+            f"{np.median(cap):.1f} (largest {cap.max():.1f}); pools {graph_pool_mib(cache)}")
 
 
 def graph_pool_mib(cache) -> str:
@@ -2661,6 +2721,437 @@ def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
             print(f"  step_ab {'parent' if root == parent else 'this tree'}: "
                   f"{r.stdout.strip().splitlines()[-1]}")
     return replay_launches
+
+
+def serving_graph_phase(dev, card: str, reset, counts) -> dict:
+    """Phase 37: the serving programs' CUDA graphs (a LoopbackRadio group,
+    a TxRadio group, the codec's encode and decode) against the same
+    objects run eagerly (``EagerGraphs``) on the card, in turns. Returns
+    the launches of the graph runs by run."""
+    import functools
+    import io
+
+    import torch
+
+    from PIL import Image
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.models.jsce import JSCE, TARGET, denormalize
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac as macmod
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import tx
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import apps, bridge
+    from gnuradio_wifi_imagetransfer_tpu_torch.utils import image
+
+    targets = ((k1, "sync_detect"), (k2, "viterbi_decode"), (k2, "viterbi_decode_many"))
+    held, out_launches = {}, {}
+    turns = ("eager", "graph", "graph", "eager")
+    spacing = RADIO_SPACING["radio-loopback"]
+
+    def check_groups(label, launches, groups):
+        """Each group launched the detector and the segmented K2 once, and
+        nothing else of ours."""
+        check(launches["sync_detect"] == groups and launches["viterbi_decode_many"] == groups
+              and all(launches[k] == 0 for k in ("sync_stats", "viterbi_decode", "fir_filter",
+                                                 "polyphase_resample")),
+              f"{label}: launches {launches} for {groups} groups")
+
+    def quiet(label, fn):
+        """fn() with stdout captured, printed after; no "dropped" line."""
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                return fn()
+        finally:
+            print(log.getvalue(), end="")
+            check("dropped" not in log.getvalue(),
+                  f"{label}: a batch or piece was dropped:\n{log.getvalue()[-2000:]}")
+
+    def graphs_of(kind, radio, first):
+        """The kind's graphs on a fresh radio: eager, or the GraphCache (and
+        the generator registered with its graphs) of the first graph run."""
+        if kind == "eager":
+            radio.graphs = EagerGraphs()
+        elif first is not None:
+            radio.graphs, radio._gen = first
+        return radio.graphs
+
+    def host_ms(fn, n=SERVING_TIMED):
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    # -- LoopbackRadio live, in turns ------------------------------------------
+    rng = np.random.default_rng(18)
+    img = rng.integers(0, 256, RADIO_IMAGE, dtype=np.uint8)
+    pieces = image.detach_image(img, rng=rng)
+    n = len(pieces)
+    app = _AppSide(img)
+    batches, first, rates = [], None, {"eager": [], "graph": []}
+    for run, kind in enumerate(turns):
+        label = f"serving graphs, radio-loopback {kind} run {run + 1}"
+        radio = bridge.LoopbackRadio(in_port=0, out_port=app.port, device=dev)
+        cache = graphs_of(kind, radio, first)
+        if kind == "graph" and first is None:
+            first = (cache, radio._gen)
+        spy = radio.graphs = _GroupSpy(cache)
+        inner = radio._process
+
+        def keep_batches(payloads, inner=inner):
+            if len(batches) < SERVING_BATCHES:
+                batches.append(list(payloads))
+            return inner(payloads)
+
+        radio._process = keep_batches
+        passes = _Passes(radio, capture=0)
+        app.reset()
+
+        def live():
+            radio.start()
+            t0 = time.perf_counter()
+            send_paced(pieces, radio.in_port, spacing)
+            app.wait(n, 60.0)
+            wall = (app.t_last or time.perf_counter()) - t0
+            radio.stop()
+            return wall
+
+        reset()
+        with recording(*targets, keep=RADIO_HELD) as calls:
+            wall = quiet(label, live)
+        launches = counts()
+        check(len(app.seen) == n and np.array_equal(app.canvas, img),
+              f"{label}: {len(app.seen)}/{n} pieces, or the canvas differs")
+        check_groups(label, launches, len(spy.keys))
+        if kind == "graph":
+            merge_held(held, hold_recorded(calls, label))
+            out_launches["radio-loopback"] = launches
+        rates[kind].append(n / wall)
+        print(f"{label}: {n}/{n} pieces, canvas bit for bit; wall {wall:.2f} s, "
+              f"{n / wall:.0f} pieces/s (sent at {1e3 * spacing:g} ms: at most about 1 000/s); "
+              f"{len(spy.keys)} groups in {len(passes.seconds)} batches, batch times "
+              f"{passes.summary()}; launches {json.dumps(launches)}"
+              + (f"; {graph_stats(cache)}" if kind == "graph" else "") + f" ({card})")
+    print(f"serving graphs, radio-loopback pieces/s in turns: eager "
+          f"{[round(r) for r in rates['eager']]}, graph {[round(r) for r in rates['graph']]} "
+          f"(host clock; the 1 ms sender caps both near 1 000/s; {card})")
+    app.close()
+
+    # -- the recorded batches through both radios, bit for bit ------------------
+    gcache, ggen = first
+    rg = bridge.LoopbackRadio(in_port=0, device=dev)
+    rg.graphs, rg._gen = gcache, ggen
+    re_ = bridge.LoopbackRadio(in_port=0, device=dev)
+    re_.graphs = EagerGraphs()
+    for r in (rg, re_):
+        r.sink.close()
+
+    def defaults(r):
+        r.set_encoding(3)
+        r.set_snr(22.0)
+        r.set_epsilon(0.0)
+        r.set_chan_est(0)
+        r.probes = False
+
+    def probed(r):
+        r.set_encoding(2)
+        r.set_snr(25.0)
+        r.probes = True
+
+    def retuned(r):
+        r.set_encoding(5)
+        r.set_snr(30.0)
+        r.set_epsilon(2e-6)
+        r.set_chan_est(3)
+        r.probes = True
+
+    def through(radio, cache, setting, seed):
+        """The recorded batches through radio._process (the sink a list,
+        the rng reseeded) with ``cache`` as its graphs; returns (spy,
+        payloads, launches, recorded calls)."""
+        spy = radio.graphs = _GroupSpy(cache, keep=True)
+        radio._rng = np.random.default_rng(seed)
+        radio.mac = macmod.Mac()            # sequence numbers from 0 again
+        radio.sink = _ListSink()
+        setting(radio)
+        reset()
+        with recording(*targets) as calls:
+            for b in batches:
+                radio._process(b)
+        return spy, radio.sink.payloads, counts(), calls
+
+    for short, name, setting in (("defaults", "defaults (MCS 3, 22 dB, LS)", defaults),
+                                 ("probes", "probes, MCS 2, 25 dB", probed),
+                                 ("retune", "retune: MCS 5, 30 dB, 2e-6, STA, probes", retuned)):
+        label = f"serving graphs, recorded batches, {name}"
+        n_before = gcache.captured
+        want, want_pay, _, _ = through(re_, EagerGraphs(), setting, 37)
+        for pass_ in ("first", "replay"):
+            spy, pay, launches, calls = through(rg, gcache, setting, 37)
+            check(len(spy.outs) == len(want.outs)
+                  and all(torch.equal(g, w) for g, w in zip(spy.outs, want.outs))
+                  and pay == want_pay,
+                  f"{label}, {pass_} pass: the group outputs or payloads differ from the eager "
+                  f"radio's")
+            check_groups(f"{label}, {pass_} pass", launches, len(spy.keys))
+        merge_held(held, hold_recorded(calls, f"{label} (replayed)"))
+        out_launches[f"radio-loopback {short}"] = launches
+        new = list(gcache.stats)[n_before:]
+        caps = [round(gcache.stats[k][1], 1) for k in new]
+        print(f"{label}: {len(batches)} batches, {len(spy.keys)} groups, {len(want_pay)} "
+              f"payloads; every group's outputs (psdu, ok"
+              f"{', symbols, samples' if 'probes' in name else ''}) and every payload bit for bit "
+              f"the eager radio's, the capture pass and the replay pass; {len(new)} keys "
+              f"captured, capture ms a key {caps}; replay launches {json.dumps(launches)} "
+              f"({card})")
+
+    # a batch's host ms, a group's device ms, a profiled batch, in turns
+    batch = max(batches, key=len)
+    group = max(bridge._by_length(batch), key=len)
+    mpdus = bridge._mpdus(macmod.Mac(), group)
+    plan = tx.tx_plan(3, mpdus.shape[1])
+    b = len(group)
+    times = {"eager": [], "graph": []}
+    for kind in turns:
+        r = rg if kind == "graph" else re_
+        defaults(r)
+        r.sink = _ListSink()
+        r.graphs = gcache if kind == "graph" else EagerGraphs()
+        inputs = bridge._staged(dev, mpdus, np.arange(b) % 127 + 1, 22.0, 0.0)
+        fn = functools.partial(bridge.loopback_group, plan=plan, cfg=r.cfg,
+                               algo=r.chan_est, probes=False, generator=r._gen)
+        key = (3, mpdus.shape[1], b, 0, False)
+        ev = cuda_event_ms(lambda: r.graphs(key, fn, inputs, (r._gen,)), SERVING_TIMED)
+        hm = host_ms(lambda: r._process(batch))
+        _, busy, _, _, acts = device_profile(lambda: r._process(batch))
+        times[kind].append((hm, ev, busy, acts))
+        print(f"  radio-loopback {kind}: a batch of {len(batch)} datagrams {hm:.3f} ms "
+              f"(host clock, median of {SERVING_TIMED}); a group of {b} {ev:.4f} ms (CUDA "
+              f"events, median of {SERVING_TIMED}); a profiled batch {busy:.3f} ms device busy, "
+              f"{acts} device activities ({card})")
+    print_profile(f"radio-loopback, one batch through the graphs ({card})",
+                  device_profile(lambda: rg._process(batch)))
+    # the host work left around the replays of that batch, step by step
+    mac = macmod.Mac()
+    groups = bridge._by_length(batch)
+
+    def frame():
+        return [bridge._mpdus(mac, g) for g in groups]
+
+    framed = frame()
+    plans = [tx.tx_plan(3, m.shape[1]) for m in framed]
+
+    def stage():
+        return [bridge._staged(dev, m, np.arange(len(m)) % 127 + 1, 22.0, 0.0) for m in framed]
+
+    staged = stage()
+    fns = [functools.partial(bridge.loopback_group, plan=pl, cfg=rg.cfg, algo=rg.chan_est,
+                             probes=False, generator=rg._gen) for pl in plans]
+    keys = [(3, m.shape[1], len(m), 0, False) for m in framed]
+
+    def replay_fetch():
+        return [gcache(k, f, i, (rg._gen,)).cpu().numpy() for k, f, i in zip(keys, fns, staged)]
+
+    fields = [bridge.group_fields(o, pl, len(m), False)
+              for o, pl, m in zip(replay_fetch(), plans, framed)]
+    rows = [p[i].tobytes() for p, ok, _, _ in fields for i in np.flatnonzero(ok)]
+    payloads = [macmod.parse(r).payload for r in rows]
+    sink = bridge.make_udp_sink("127.0.0.1", free_udp_port())
+    steps = {name: round(host_ms(f), 4) for name, f in (
+        ("framing", frame), ("staging", stage), ("replays and fetches", replay_fetch),
+        ("parse and FCS", lambda: [macmod.parse(r) for r in rows]),
+        ("sends", lambda: [sink.send_mac_payload(pl) for pl in payloads]))}
+    sink.close()
+    print(f"radio-loopback, the batch of {len(batch)} datagrams ({len(groups)} groups) step by "
+          f"step through the graphs, host ms (median of {SERVING_TIMED}): {json.dumps(steps)} "
+          f"({card})")
+    print(f"serving graphs, radio-loopback: {graph_stats(gcache)}; memory_reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB ({card})")
+    rg.stop()
+    re_.stop()
+    del rg, re_, first, gcache
+
+    # -- TxRadio on the same batches -------------------------------------------
+    tbatches = [bt[i: i + 4] for bt in batches for i in range(0, len(bt), 4)]
+
+    def tx_run(radio):
+        sent = []
+        radio._emit = sent.append
+        radio.mac = macmod.Mac()
+        reset()
+        for bt in tbatches:
+            radio._process(bt)
+        return sent, counts()
+
+    tg = bridge.TxRadio(in_port=0, samp_port=free_udp_port(), device=dev)
+    te = bridge.TxRadio(in_port=0, samp_port=free_udp_port(), device=dev)
+    te.graphs = EagerGraphs()
+    want, _ = tx_run(te)
+    for pass_ in ("first", "replay"):
+        got, launches = tx_run(tg)
+        check(len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"serving graphs, TxRadio {pass_} pass: the samples differ from the eager radio's")
+        check(all(v == 0 for v in launches.values()),
+              f"serving graphs, TxRadio: launched a kernel of ours: {launches}")
+    out_launches["radio-split TxRadio"] = launches
+    tb = max(tbatches, key=len)
+    tgroup = max(bridge._by_length(tb), key=len)
+    tmp = bridge._mpdus(macmod.Mac(), tgroup)
+    tplan = tx.tx_plan(tg.mcs, tmp.shape[1])
+    for kind in turns:
+        r = tg if kind == "graph" else te
+        r._emit = lambda s: None
+        inputs = bridge._staged(dev, tmp, np.arange(1, len(tgroup) + 1))
+        fn = functools.partial(bridge.tx_bursts, plan=tplan, scale=r.scale)
+        key = (tplan.mcs, tplan.psdu_len, len(tgroup), r.scale)
+        ev = cuda_event_ms(lambda: r.graphs(key, fn, inputs), SERVING_TIMED)
+        hm = host_ms(lambda: r._process(tb))
+        _, busy, _, _, acts = device_profile(lambda: r._process(tb))
+        print(f"  TxRadio {kind}: a batch of {len(tb)} datagrams {hm:.3f} ms (host clock, "
+              f"median of {SERVING_TIMED}, sc16 quantisation and the sends included); a "
+              f"group of {len(tgroup)} {ev:.4f} ms (CUDA events); a profiled batch {busy:.3f} "
+              f"ms device busy, {acts} device activities ({card})")
+    print(f"serving graphs, TxRadio (MCS {tg.mcs}, scale {tg.scale}): {len(tbatches)} batches, "
+          f"{len(want)} sample streams bit for bit the eager radio's, the capture pass and the "
+          f"replay pass; {graph_stats(tg.graphs)} ({card})")
+    tg.stop()
+    te.stop()
+    del tg, te
+
+    # -- the codec and Mode 1 --------------------------------------------------
+    codec = JSCE.packaged(device=dev)
+    t0 = time.perf_counter()
+    codec.warm()
+    t_warm = time.perf_counter() - t0
+    codec_e = JSCE.packaged(device=dev)
+    codec_e.graphs = EagerGraphs()
+    codec_e.warm()
+    images = mode1_images()
+    latent = codec_e.img2msg(images)
+    for _ in range(2):
+        check(np.array_equal(codec.img2msg(images), latent),
+              "serving graphs, codec: the latent differs from the eager codec's")
+        for u in TARGET:
+            check(np.array_equal(np.asarray(codec.msg2img(latent, u)),
+                                 np.asarray(codec_e.msg2img(latent, u))),
+                  f"serving graphs, codec: user {u}'s reconstruction differs from the eager "
+                  f"codec's")
+    for kind in turns:
+        c = codec if kind == "graph" else codec_e
+        enc = cuda_event_ms(lambda: c.img2msg(images), SERVING_TIMED)
+        dec = cuda_event_ms(lambda: c.msg2img(latent, "3-4"), SERVING_TIMED)
+        hm = host_ms(lambda: c.msg2img(latent, "3-4"))
+        _, busy, _, _, acts = device_profile(lambda: c.msg2img(latent, "3-4"))
+        print(f"  codec {kind}: img2msg (2 users) {enc:.3f} ms, msg2img {dec:.3f} ms (CUDA "
+              f"events, median of {SERVING_TIMED}); msg2img {hm:.3f} ms (host clock, median); "
+              f"a profiled msg2img {busy:.3f} ms device busy, {acts} device activities "
+              f"({card})")
+    print_profile(f"msg2img through its graph ({card})",
+                  device_profile(lambda: codec.msg2img(latent, "3-4")))
+    # msg2img step by step, and the receiver's JPEG of each reconstruction
+    label = codec._label("3-4")
+
+    def upload():
+        return torch.from_numpy(np.array(latent, dtype=np.float32)).to(dev)
+
+    xd = upload()
+
+    def replay_fetch():
+        with torch.inference_mode():
+            return codec._run("decode", codec.decode, xd, label).cpu().numpy()
+
+    rec = replay_fetch()
+
+    def post():
+        return np.asarray(Image.fromarray(
+            (np.clip(denormalize(rec), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)))
+
+    shown = post()
+    steps = {name: round(host_ms(f), 4) for name, f in (
+        ("upload", upload), ("replay and fetch", replay_fetch), ("denormalise to uint8", post),
+        ("receiver's JPEG", lambda: apps._jpeg_b64(shown)))}
+    print(f"msg2img step by step through its graph, host ms (median of {SERVING_TIMED}): "
+          f"{json.dumps(steps)} ({card})")
+    print(f"serving graphs, codec: JSCE.packaged() ({codec.img_size[0]} x {codec.img_size[1]}, "
+          f"c = {codec.c}) warmed (both graphs captured) in {t_warm:.2f} s; the latent and "
+          f"both users' reconstructions bit for bit the eager codec's, twice; "
+          f"{graph_stats(codec.graphs)} ({card})")
+
+    lpieces = image.detach_image(latent)
+    nl = len(lpieces)
+    first, rates = None, {"eager": [], "graph": []}
+    for run, kind in enumerate(turns):
+        label = f"serving graphs, mode1-loopback {kind} run {run + 1}"
+        c = codec if kind == "graph" else codec_e
+        rx_port = free_udp_port()
+        radio = bridge.LoopbackRadio(in_port=0, out_port=rx_port, device=dev)
+        cache = graphs_of(kind, radio, first)
+        if kind == "graph" and first is None:
+            first = (cache, radio._gen)
+        spy = radio.graphs = _GroupSpy(cache)
+        receiver = apps.FeatureMapReceiverApp(c, rx_port=rx_port, radio=radio,
+                                              latent_shape=latent.shape)
+        decodes = _Passes(c, capture=0, attr="msg2img")
+
+        def live():
+            """Laps of the pieces until the latent is whole, each in a new
+            order, as the sender app sends them (a receiver that falls
+            behind its socket loses pieces): (laps, wall s until whole)."""
+            receiver.start()
+            radio.start()
+            t0 = time.perf_counter()
+
+            def whole():
+                return np.array_equal(receiver.feature_map, latent)
+
+            order = np.random.default_rng(21)
+            for laps in range(1, APP_MAX_LAPS + 1):
+                send_paced([lpieces[i] for i in order.permutation(nl)], radio.in_port, spacing)
+                if wait_whole(receiver, whole):
+                    break
+            wall = time.perf_counter() - t0
+            alive = (radio._thread.is_alive(), receiver._rx_thread.is_alive())
+            radio.stop()
+            receiver.stop()
+            if not whole():
+                fm = receiver.feature_map
+                missing = sum(not np.array_equal(fm[y: y + 10, x: x + 10, c: c + 1], p)
+                              for (y, x, c), p in lpieces)
+                fail(f"{label}: the latent is not whole after {laps} laps: {missing} pieces "
+                     f"missing or wrong; the receiver drew {receiver.pieces_received} pieces; "
+                     f"radio {radio.stats}, {len(spy.keys)} groups, {len(decodes.seconds)} "
+                     f"decodes; threads alive (radio, receiver) {alive}")
+            return laps, wall
+
+        reset()
+        with recording(*targets, keep=RADIO_HELD) as calls:
+            laps, wall = quiet(label, live)
+        launches = counts()
+        del c.msg2img
+        check_groups(label, launches, len(spy.keys))
+        if kind == "graph":
+            merge_held(held, hold_recorded(calls, label))
+            out_launches["mode1-loopback"] = launches
+        dec_ms = np.array(decodes.seconds) * 1e3
+        rates[kind].append((nl / wall, dec_ms.size / wall, float(np.median(dec_ms))))
+        print(f"{label}: the latent {latent.shape} bit for bit after {wall:.2f} s in {laps} "
+              f"lap(s), {nl / wall:.0f} pieces/s ({nl} pieces sent at {1e3 * spacing:g} ms: at "
+              f"most about 1 000/s); {dec_ms.size} decodes ({dec_ms.size / wall:.1f}/s), msg2img in "
+              f"the receive thread median {np.median(dec_ms):.2f} ms (p90 "
+              f"{np.percentile(dec_ms, 90):.2f}); {len(spy.keys)} groups; launches "
+              f"{json.dumps(launches)} ({card})")
+    print(f"serving graphs, mode1-loopback in turns [pieces/s, decodes/s, msg2img ms]: eager "
+          f"{[[round(v, 2) for v in r] for r in rates['eager']]}, graph "
+          f"{[[round(v, 2) for v in r] for r in rates['graph']]} (host clock; {card})")
+    shapes = {k: len(v[1]) for k, v in held.items()}
+    print(f"serving graphs: kernel calls held against their plain versions {json.dumps(shapes)}, "
+          f"max error {json.dumps({k: v[0] for k, v in held.items()})}; memory_reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB ({card})")
+    del codec, codec_e, first
+    torch.cuda.empty_cache()
+    return out_launches
 
 
 def main() -> None:
@@ -3252,6 +3743,9 @@ def main() -> None:
                                  astreams, parent)
     del astreams
 
+    # -- 37. the serving programs' CUDA graphs ---------------------------------
+    serving_launches = serving_graph_phase(dev, card, reset, counts)
+
     for label, calls in {**radio_inputs, **app_inputs}.items():
         det_args, det_kw = calls["sync_detect"]
         vit_args, vit_kw = calls["viterbi_decode_many"]
@@ -3306,7 +3800,9 @@ def main() -> None:
                     "multichip_launches": {k: v[name] for k, v in multichip_launches.items()},
                     "waterfall_launches": waterfall_launches[name],
                     "soak_launches": soak_launches[name],
-                    "graph_launches": {k: v[name] for k, v in graph_launches.items()}})
+                    "graph_launches": {k: v[name] for k, v in graph_launches.items()},
+                    "serving_graph_launches": {k: v[name]
+                                               for k, v in serving_launches.items()}})
     print(f"per executor step: sync_detect on ({rows}, {n_ext}): {k1d_ms:.4f} ms, plain "
           f"{k1d_plain:.3f} ms; viterbi_decode_many on ({n_slots}, {payload_steps}) + "
           f"({n_slots}, 24): {k2m_ms:.4f} ms, plain {k2m_plain:.2f} ms. Off the step: "

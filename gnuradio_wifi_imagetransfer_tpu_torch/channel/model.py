@@ -16,7 +16,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table
 
 
 def awgn(generator: torch.Generator, x: torch.Tensor,
@@ -40,8 +43,12 @@ def apply_cfo(x: torch.Tensor, frequency_offset: float | torch.Tensor) -> torch.
 
 
 def multipath(x: torch.Tensor, taps) -> torch.Tensor:
-    """FIR multipath: y[n] = sum_k taps[k] x[n-k] (causal, same length)."""
-    taps = torch.as_tensor(taps, dtype=torch.complex64, device=x.device)
+    """FIR multipath: y[n] = sum_k taps[k] x[n-k] (causal, same length).
+    Taps given as a tuple are a constant cached on x's device."""
+    if isinstance(taps, tuple):
+        taps = device_table(np.asarray, taps, device=x.device, dtype=torch.complex64)
+    else:
+        taps = torch.as_tensor(taps, dtype=torch.complex64, device=x.device)
     k = taps.shape[-1]
     if k == 1:
         return (x * taps[..., 0]).to(torch.complex64)
@@ -91,8 +98,8 @@ def channel_model(
     ``snr_db`` is given, the signal is pre-scaled by 10^(snr/20) as the
     loopback slider does; otherwise the caller owns scaling."""
     if snr_db is not None:
-        x = x * torch.tensor(10.0, dtype=torch.float32, device=x.device) ** (
-            torch.as_tensor(snr_db, dtype=torch.float32, device=x.device) / 20.0)
+        ten = device_table(np.float32, 10.0, device=x.device)
+        x = x * ten ** (torch.as_tensor(snr_db, dtype=torch.float32, device=x.device) / 20.0)
     y = multipath(x, taps)
     y = apply_cfo(y, frequency_offset)
     if clock_ppm:

@@ -13,9 +13,14 @@ clamps and rounds to uint8.
 
 The forward runs in float32 with TF32 off and deterministic cuDNN
 algorithms (``layers.fp32_convs``), so the card's latent matches the CPU
-path's to float32 rounding. The first call on a card loads its kernels:
-``warm()`` runs one of each before a caller that must not stall (a radio's
-receive thread) starts.
+path's to float32 rounding. On a card the encode (one user's image and
+label -> its latent) and the decode (the latent and a label -> the HWC
+reconstruction, the L2 normalisation inside) are CUDA graphs
+(``self.graphs``, keyed by geometry), as the JAX package jits its
+``_enc_apply`` and ``_dec_apply``; each user's label is uploaded once and
+kept on the device, a graph input. The first call of each on a card
+loads its kernels and captures its graph: ``warm()`` makes both before a
+caller that must not stall (a radio's receive thread) starts.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from gnuradio_wifi_imagetransfer_tpu_torch.models import weights as wt
 from gnuradio_wifi_imagetransfer_tpu_torch.models.decoder import DecoderPE
 from gnuradio_wifi_imagetransfer_tpu_torch.models.encoder import Encoder
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.graphs import GraphCache
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -142,6 +148,8 @@ class JSCE:
                         p.data.zero_()
         for m in (self.encoder, self.decoder):
             m.eval().requires_grad_(False).to(self.device)
+        self.graphs = GraphCache()
+        self._labels: dict[str, torch.Tensor] = {}
 
     # -- reference API ----------------------------------------------------
 
@@ -151,11 +159,17 @@ class JSCE:
         return complex(float(real), float(imag))
 
     def _label(self, user_key: str) -> torch.Tensor:
-        csi = self.get_csi(user_key)
-        b = self.csi_bound
-        w = int(np.clip(round(csi.real) + b, 0, 2 * b - 1))
-        h = int(np.clip(round(csi.imag) + b, 0, 2 * b - 1))
-        return torch.from_numpy(np.ascontiguousarray(self.pe[:, w, h])).to(self.device)
+        """The user's PE label (256,) on the device, uploaded at its first
+        use and kept."""
+        label = self._labels.get(user_key)
+        if label is None:
+            csi = self.get_csi(user_key)
+            b = self.csi_bound
+            w = int(np.clip(round(csi.real) + b, 0, 2 * b - 1))
+            h = int(np.clip(round(csi.imag) + b, 0, 2 * b - 1))
+            label = torch.from_numpy(np.ascontiguousarray(self.pe[:, w, h])).to(self.device)
+            self._labels[user_key] = label
+        return label
 
     def _preprocess(self, img) -> np.ndarray:
         """Resize (a PIL image) and ImageNet-normalize. The reference's
@@ -170,6 +184,26 @@ class JSCE:
             raise ValueError(f"expected {self.img_size} image, got {img.shape}")
         return normalize_image(img)
 
+    def encode(self, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """One user's normalised HWC image (H, W, 3) float32 and label (256,)
+        -> its latent (1, c, h, w): what the encode graph captures."""
+        return self.encoder(x.permute(2, 0, 1)[None], label)
+
+    def decode(self, latent: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """The (h, w, c) float32 latent, L2-normalised over c (floor 1e-12),
+        and a label (256,) -> the (H, W, 3) reconstruction, still
+        ImageNet-normalised: what the decode graph captures."""
+        x = latent / torch.clamp(torch.linalg.vector_norm(latent, dim=-1, keepdim=True),
+                                 min=1e-12)
+        return self.decoder(x.permute(2, 0, 1)[None], label)[0].permute(1, 2, 0)
+
+    def _run(self, name: str, fn, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """fn(x, label): a replay of its graph (keyed by name and geometry)
+        on a card, eager on the CPU."""
+        if x.device.type == "cuda":
+            return self.graphs((name, tuple(x.shape)), fn, (x, label))
+        return fn(x, label)
+
     @torch.inference_mode()
     def img2msg(self, image_dict: dict) -> np.ndarray:
         """{user_key: HWC image} -> (h, w, c) float32 mean-superposed latent
@@ -177,7 +211,7 @@ class JSCE:
         latents = []
         for key, img in image_dict.items():
             x = torch.from_numpy(self._preprocess(img)).to(self.device)
-            lat = self.encoder(x.permute(2, 0, 1)[None], self._label(key))   # (1, c, h, w)
+            lat = self._run("encode", self.encode, x, self._label(key))      # (1, c, h, w)
             latents.append(lat[0].permute(1, 2, 0))
         return torch.stack(latents).mean(dim=0).cpu().numpy().astype(np.float32)
 
@@ -185,19 +219,18 @@ class JSCE:
     def msg2img(self, latent: np.ndarray, user_id: str):
         """(h, w, c) latent -> the user's reconstructed PIL image
         (jsce_codec.py:123-144)."""
-        x = torch.tensor(np.asarray(latent, dtype=np.float32), device=self.device)
-        x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
-        rec = self.decoder(x.permute(2, 0, 1)[None], self._label(user_id))[0]
-        rec = np.clip(denormalize(rec.permute(1, 2, 0).cpu().numpy()), 0.0, 1.0)
+        x = torch.from_numpy(np.array(latent, dtype=np.float32)).to(self.device)
+        rec = self._run("decode", self.decode, x, self._label(user_id))
+        rec = np.clip(denormalize(rec.cpu().numpy()), 0.0, 1.0)
         from PIL import Image
 
         return Image.fromarray((rec * 255.0 + 0.5).astype(np.uint8))
 
     def warm(self) -> "JSCE":
-        """One img2msg and one msg2img at this geometry on blank inputs: the
-        first launches on a card load their kernels and choose the cuDNN
-        algorithms, which a caller on a radio's receive thread must not wait
-        for."""
+        """One img2msg and one msg2img at this geometry on blank inputs: on a
+        card they load the kernels, choose the cuDNN algorithms and capture
+        the encode and decode graphs, which a caller on a radio's receive
+        thread must not wait for."""
         blank = np.zeros(self.img_size + (3,), np.uint8)
         latent = self.img2msg({u: blank for u in TARGET})
         self.msg2img(latent, TARGET[0])

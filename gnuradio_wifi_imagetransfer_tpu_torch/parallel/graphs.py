@@ -1,20 +1,31 @@
-"""CUDA graphs of the local executors' device steps.
+"""CUDA graphs of the port's device programs.
 
-The JAX package runs each device step as one program, compiled once per
-static shape: the local ``step`` (parallel/executor.py:259, whose offset
-is a traced scalar), the adaptive stage A, and each stage-B bucket
-(``_stage_b_fn*`` under ``functools.lru_cache(maxsize=64)``, the bucket
-padded to a power of two). Their counterpart here is a CUDA graph.
-``GraphCache`` keeps one graph a key, at most 64 of them,
-the least recently used out.
+The JAX package runs each device program as one program, compiled once
+per static shape: the local executors' ``step`` (parallel/executor.py:259,
+whose offset is a traced scalar), the adaptive stage A, and each stage-B
+bucket (``_stage_b_fn*`` under ``functools.lru_cache(maxsize=64)``, the
+bucket padded to a power of two); the loopback radio's group
+(runtime/bridge.py:273), the TX radio's bursts (phy/tx.py ``_jitted_tx``)
+and the JSCE codec's encode and decode (models/jsce.py:144-147). Their
+counterpart here is a CUDA graph. ``GraphCache`` keeps one graph a key,
+at most 64 of them, the least recently used out.
 
 A key's first call runs the function eagerly on a side stream. This
-warm-up builds the kernels (nvcc) and cuFFT's plans, and its result is the
-call's. Then the function is captured once, on that stream, into a graph
-with its own memory pool. Each later call copies its inputs into the
-graph's static input buffers and replays the graph. Inside the graph the
-outputs are copied into one buffer; a replay returns views of one clone
-of it, so it never overwrites what an earlier call returned.
+warm-up builds the kernels (nvcc), cuFFT's plans and cuDNN's choices, and
+its result is the call's. Then the function is captured once, on that
+stream, into a graph with its own memory pool. Each later call copies its
+inputs into the graph's static input buffers and replays the graph. Inside
+the graph the outputs are copied into one buffer; a replay returns views
+of one clone of it, so it never overwrites what an earlier call returned.
+Replays of one graph from several threads take turns (a lock a graph).
+
+A function that draws noise names its ``torch.Generator``s (CUDA, of the
+caller's own) in the call: each is registered with the graph before the
+capture, so that a replay draws from the generator's state at that
+replay, as the eager function would. The caller seeds each generator
+before every call, the first (the warm-up's draws) and each replay alike;
+a replay after ``manual_seed(s)`` then draws what an eager call after
+``manual_seed(s)`` draws.
 
 A kernel wrapper counts a launch through ``ops.build.count_launch``. In a
 capture that logs the call instead, and each replay counts the logged
@@ -23,14 +34,13 @@ calls and hands their inputs to an active ``utils.tracing.recording``
 function does, and ``ops/holds.py`` holds every replayed kernel call.
 
 Captures run one at a time (a lock), in ``thread_local`` mode, so that
-other threads may allocate, launch and wait for their own streams
+other threads may allocate, launch, replay and wait for their own streams
 meanwhile. While a capture runs, no thread may synchronise the whole
 device (``torch.cuda.synchronize``: CUDA refuses it, and the capture
-fails) or draw from the default CUDA generator (the capture holds it; a
-``torch.Generator`` of one's own is free). A capture or a replay that
-fails raises: nothing
-falls back to the eager path. Graphs take CUDA tensors only; the
-executors run CPU tensors eagerly.
+fails) or draw from the default CUDA generator (every capture holds it);
+a registered generator is the capturing function's alone. A capture or a
+replay that fails raises: nothing falls back to the eager path. Graphs
+take CUDA tensors only; their callers run CPU tensors eagerly.
 """
 
 from __future__ import annotations
@@ -66,8 +76,9 @@ class _Graph:
     output buffer and its layout, and the kernel calls the capture
     logged. ``first`` is the warm-up's result, the first call's."""
 
-    def __init__(self, fn, inputs):
+    def __init__(self, fn, inputs, generators=()):
         dev = inputs[0].device
+        self.lock = threading.Lock()
         current = torch.cuda.current_stream(dev)
         with _capture_lock:
             side = _streams.get(dev.index)
@@ -83,6 +94,8 @@ class _Graph:
                 t.record_stream(current)
             t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                self.graph.register_generator_state(gen)
             self.log: list = []
             with build.capture_log(self.log), torch.cuda.graph(
                     self.graph, stream=side, capture_error_mode="thread_local"):
@@ -105,20 +118,23 @@ class _Graph:
             if s.shape != x.shape or s.dtype != x.dtype:
                 raise ValueError(f"graph input {tuple(x.shape)} {x.dtype} differs from its "
                                  f"capture's {tuple(s.shape)} {s.dtype}")
-            s.copy_(x, non_blocking=True)
-        self.graph.replay()
-        out = self._rebuild(self._views(self.buf.clone()))
-        for wrapper, args in self.log:
-            tracing.replayed(wrapper, args)
+        with self.lock:
+            for s, x in zip(self.static, inputs):
+                s.copy_(x, non_blocking=True)
+            self.graph.replay()
+            out = self._rebuild(self._views(self.buf.clone()))
+            for wrapper, args in self.log:
+                tracing.replayed(wrapper, args)
         return out
 
 
 class GraphCache:
     """At most ``MAX_GRAPHS`` CUDA graphs by key, the least recently used out.
-    ``cache(key, fn, inputs)`` is ``fn(*inputs)``: eager with a capture at
-    a key's first call, a replay at each later one. The key holds
-    everything the graph fixes besides the inputs' shapes and dtypes,
-    which are checked at each replay. ``captured`` counts captures and
+    ``cache(key, fn, inputs, generators)`` is ``fn(*inputs)``: eager with a
+    capture at a key's first call, a replay at each later one; ``fn`` draws
+    only from ``generators``, which the caller seeds before the call. The
+    key holds everything the graph fixes besides the inputs' shapes and
+    dtypes, which are checked at each replay. ``captured`` counts captures and
     ``stats`` keeps (warm-up ms, capture ms, kernel calls) by key (host
     clock)."""
 
@@ -126,24 +142,31 @@ class GraphCache:
 
     def __init__(self):
         self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()          # the dict, across threads
         self.captured = 0
         self.stats: dict = {}
 
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def __call__(self, key, fn, inputs):
-        g = self._graphs.get(key)
+    def __call__(self, key, fn, inputs, generators=()):
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                self._graphs.move_to_end(key)
         if g is not None:
-            self._graphs.move_to_end(key)
             return g.replay(inputs)
-        g = _Graph(fn, inputs)
-        self.captured += 1
-        self.stats[key] = (g.warm_ms, g.capture_ms, len(g.log))
-        self._graphs[key] = g
-        if len(self._graphs) > self.MAX_GRAPHS:
-            # the evicted graph's last replay may still run on this stream
-            torch.cuda.current_stream(g.buf.device).synchronize()
-            self._graphs.popitem(last=False)
+        g = _Graph(fn, inputs, generators)
         out, g.first = g.first, None
+        with self._lock:
+            self.captured += 1
+            self.stats[key] = (g.warm_ms, g.capture_ms, len(g.log))
+            self._graphs[key] = g
+            evicted = (self._graphs.popitem(last=False)
+                       if len(self._graphs) > self.MAX_GRAPHS else None)
+        if evicted is not None:
+            # the evicted graph's last replay may still run on this stream:
+            # it is freed once that has ended
+            torch.cuda.current_stream(g.buf.device).synchronize()
+            del evicted
         return out

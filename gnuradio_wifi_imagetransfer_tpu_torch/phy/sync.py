@@ -167,10 +167,18 @@ def receive(x, plan, max_frames: int, cfg: PhyConfig = PhyConfig(), algo=None,
     Returns (RxResult, cand); invalid candidate slots carry garbage bytes
     (mask with cand.valid).
     """
-    from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx as rxmod
-
     dev = resolve(device)
     x = torch.as_tensor(x, device=dev).to(torch.complex64)
+    return receive_on_device(x, plan, max_frames, cfg, algo)
+
+
+def receive_on_device(x: torch.Tensor, plan, max_frames: int, cfg: PhyConfig = PhyConfig(),
+                      algo=None):
+    """``receive``'s device part, on x's device: x (..., N) complex64 ->
+    (RxResult, cand). It uploads nothing, so that a CUDA graph can hold it
+    (the loopback radio's group)."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx as rxmod
+
     if algo is None:
         algo = ChannelEstimator(cfg.chan_est)
     windows, frame_start, cand = synchronize(x, plan.n_sym, max_frames, cfg)

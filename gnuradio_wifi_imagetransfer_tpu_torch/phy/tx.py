@@ -4,6 +4,10 @@ PyTorch port of the JAX package's phy/tx.py: scramble, BCC encode,
 puncture, interleave, map, the SIGNAL header, carrier allocation, IFFT and
 cyclic prefix, over a batch of frames with static shapes per (MCS, length);
 and ``pad_burst``, the scaling and zero padding around a burst.
+
+``transmit_traced`` is the device body alone, for the device programs
+(the radios' CUDA graphs): it reads nothing back and uploads nothing.
+``transmit`` uploads its PSDUs and seeds, then calls it.
 """
 
 from __future__ import annotations
@@ -89,6 +93,16 @@ def _tx(psdu: torch.Tensor, seeds: torch.Tensor, plan: TxPlan) -> torch.Tensor:
     return ofdm.assemble_burst(sig_freq, data_freq)
 
 
+def transmit_traced(psdu: torch.Tensor, plan: TxPlan,
+                    scrambler_seed: torch.Tensor | None = None) -> torch.Tensor:
+    """The TX body on the device: (B, L) uint8 frames and (B,) int64
+    scrambler seeds, both on one device, -> (B, n_samples) complex64. The
+    seeds default to 1..B (mod 127), the reference mapper's counter."""
+    if scrambler_seed is None:
+        scrambler_seed = torch.arange(psdu.shape[0], device=psdu.device) % 127 + 1
+    return _tx(psdu, scrambler_seed, plan)
+
+
 def transmit(psdu, mcs: int, scrambler_seed=1, device="cuda") -> torch.Tensor:
     """PSDU byte frames -> baseband bursts on ``device``.
 
@@ -101,7 +115,7 @@ def transmit(psdu, mcs: int, scrambler_seed=1, device="cuda") -> torch.Tensor:
     plan = tx_plan(mcs, psdu.shape[-1])
     batch = psdu.shape[:-1]
     seeds = torch.as_tensor(scrambler_seed, dtype=torch.long, device=dev).expand(batch)
-    out = _tx(psdu.reshape(-1, psdu.shape[-1]), seeds.reshape(-1), plan)
+    out = transmit_traced(psdu.reshape(-1, psdu.shape[-1]), plan, seeds.reshape(-1))
     return out.reshape(batch + out.shape[-1:])
 
 

@@ -49,7 +49,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from gnuradio_wifi_imagetransfer_tpu_torch.config import AppConfig
-from gnuradio_wifi_imagetransfer_tpu_torch.runtime.bridge import _dropped
+from gnuradio_wifi_imagetransfer_tpu_torch.runtime.bridge import RCVBUF_BYTES, _dropped
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import image as imgutil
 
 _PKG_DIR = pathlib.Path(__file__).parent
@@ -348,6 +348,10 @@ class _ReceiverBase(_AppServer):
         self.pieces_received = 0
         self._stop_evt = threading.Event()
         self.rx_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        # a radio that replays CUDA graphs delivers bursts faster than this
+        # thread draws and decodes: the radios' deep kernel buffer (capped
+        # by net.core.rmem_max) keeps more of them
+        self.rx_sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RCVBUF_BYTES)
         self.rx_sock.bind((cfg.rx_host, cfg.rx_port if rx_port is None else rx_port))
         self.rx_sock.settimeout(1.0)            # download_image_udp.py:32
         self.rx_port = self.rx_sock.getsockname()[1]

@@ -23,6 +23,15 @@ native C++ classes (runtime/native.py) when the toolchain is there and the
 Python ones otherwise. The PHY runs on ``device`` ("cuda" unless the caller
 asks for the CPU), through the hand-written kernels on a card.
 
+On a card each device program is a CUDA graph (parallel/graphs.py), as
+each is one jitted program in the JAX package: a LoopbackRadio group
+(``loopback_group``: TX, the channel, the receive), keyed (MCS, MPDU
+length, group size, equalizer, probes), and a TxRadio group
+(``tx_bursts``), keyed (MCS, MPDU length, group size, scale). The host
+frames the MPDUs, uploads them with the group's seeds and scalars in one
+pinned copy, and fetches the group's outputs in one copy. On the CPU the
+same functions run eagerly.
+
 The radio loops catch ``Exception`` and print "dropped ..." so that one bad
 datagram does not kill a radio, as the reference's do; a caller that must
 see every failure (a test, a smoke run) watches stdout for those lines.
@@ -30,6 +39,7 @@ see every failure (a test, a smoke run) watches stdout for those lines.
 
 from __future__ import annotations
 
+import functools
 import queue
 import socket
 import threading
@@ -46,11 +56,12 @@ from gnuradio_wifi_imagetransfer_tpu_torch.config import (
     PhyConfig,
 )
 from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import AdaptiveStreamExecutor
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.graphs import GraphCache
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import mac as macmod
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import params, sync, tx
 from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
-from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
+from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import device_table, resolve
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.xfer import SC16_FULL_SCALE, quantize_sc16, to_riq
 
 # deep kernel receive buffer (capped by net.core.rmem_max): senders burst
@@ -168,6 +179,77 @@ def _mpdus(mac: macmod.Mac, group: list[bytes]) -> np.ndarray:
     return np.stack([np.frombuffer(mac.frame(p), dtype=np.uint8) for p in group])
 
 
+def _staged(dev: torch.device, mpdus: np.ndarray, seeds, *scalars: float) -> tuple:
+    """(B, M) uint8 MPDUs, B int64 scrambler seeds and float32 scalars on
+    ``dev`` through one copy from pinned memory, non-blocking (a pinned
+    block is not reused before its copy completes). Returns (mpdus, seeds,
+    *scalars as 0-d tensors)."""
+    b, m = mpdus.shape
+    o_m = 8 * b + 4 * len(scalars)
+    host = torch.empty(o_m + b * m, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    h = host.numpy()
+    h[: 8 * b].view(np.int64)[:] = seeds
+    h[8 * b: o_m].view(np.float32)[:] = scalars
+    h[o_m:].reshape(b, m)[:] = mpdus
+    buf = host.to(dev, non_blocking=True)
+    sc = buf[8 * b: o_m].view(torch.float32)
+    return (buf[o_m:].view(b, m), buf[: 8 * b].view(torch.int64),
+            *(sc[i] for i in range(len(scalars))))
+
+
+PSD_HEAD = 1 << 13      # channel samples a probed group hands the spectrum probe
+
+
+def loopback_group(mpdus: torch.Tensor, seeds: torch.Tensor, snr_db: torch.Tensor,
+                   foff: torch.Tensor, *, plan: tx.TxPlan, cfg: PhyConfig, algo,
+                   probes: bool, generator: torch.Generator) -> torch.Tensor:
+    """One LoopbackRadio group on the device, the JAX radio's ``radio_fn``
+    (its runtime/bridge.py:273-292): TX, ``pad_burst(100, 400, 0.6)``, the
+    channel (noise voltage 1, ``snr_db``, ``foff`` cycles/sample; noise
+    from ``generator``) and the receive with 2 B candidate slots. Inputs on
+    one device: mpdus (B, M) uint8, seeds (B,) int64, snr_db and foff 0-d
+    float32. It reads nothing back and uploads nothing: on a card it is a
+    CUDA graph. Returns one uint8 tensor, which ``group_fields`` takes
+    apart."""
+    b = mpdus.shape[0]
+    stream = tx.pad_burst(tx.transmit_traced(mpdus, plan, seeds), 100, 400, scale=0.6)
+    y = chmodel.channel_model(generator, stream.reshape(-1),
+                              noise_voltage=device_table(np.float32, 1.0, device=mpdus.device),
+                              frequency_offset=foff, snr_db=snr_db)
+    res, cand = sync.receive_on_device(y, plan, 2 * b, cfg, algo)
+    parts = [res.psdu.to(torch.uint8).reshape(-1),
+             (cand.valid & res.sig["parity_ok"]).to(torch.uint8)]
+    if probes:
+        parts[:0] = [torch.view_as_real(v).reshape(-1).view(torch.uint8)
+                     for v in (res.eq_symbols, y[:PSD_HEAD])]
+    return torch.cat(parts)
+
+
+def group_fields(packed: np.ndarray, plan: tx.TxPlan, b: int, probes: bool) -> tuple:
+    """A fetched ``loopback_group`` output -> (psdu (2B, M) uint8, ok (2B,)
+    bool: SIGNAL parity on a valid candidate, equalized symbols (2B, n_sym,
+    48) complex64 and the channel's first PSD_HEAD samples, or None and None
+    without probes)."""
+    k, m = 2 * b, plan.psdu_len
+    off = packed.size - k * m - k                   # psdu and ok close the buffer
+    eq = head = None
+    if probes:
+        n_eq = k * plan.n_sym * 48 * 8
+        eq = packed[:n_eq].view(np.complex64).reshape(k, plan.n_sym, 48)
+        head = packed[n_eq: off].view(np.complex64)
+    return (packed[off: off + k * m].reshape(k, m), packed[off + k * m:].astype(bool),
+            eq, head)
+
+
+def tx_bursts(mpdus: torch.Tensor, seeds: torch.Tensor, *, plan: tx.TxPlan,
+              scale: float) -> torch.Tensor:
+    """One TxRadio group on the device: TX and ``pad_burst(100, 1000,
+    scale)``, flattened to one complex64 sample stream (the JAX TxRadio's
+    ``transmit`` + ``pad_burst``). On a card it is a CUDA graph."""
+    return tx.pad_burst(tx.transmit_traced(mpdus, plan, seeds), 100, 1000,
+                        scale=scale).reshape(-1)
+
+
 def _by_length(payloads: list[bytes]) -> list[list[bytes]]:
     """Payloads grouped by length, groups in order of first appearance."""
     by_len: dict[int, list[bytes]] = {}
@@ -191,9 +273,13 @@ class LoopbackRadio:
     counts each decoded frame once (the JAX package's also counts the
     copies).
 
-    The noise of a group comes from a ``torch.Generator`` on the radio's
+    The noise of a group comes from the radio's ``torch.Generator`` on its
     device, seeded from the radio's numpy ``default_rng(seed)``, one draw a
-    group, as the JAX package seeds its PRNG key.
+    group, as the JAX package seeds its PRNG key. On a card a group is one
+    CUDA graph replay (``self.graphs``, one graph a key (MCS, MPDU length,
+    group size, equalizer, probes), at most ``batch`` group sizes a length;
+    the generator registered with each graph); its first group of a key
+    captures the graph, on the radio's thread.
     """
 
     def __init__(
@@ -223,6 +309,8 @@ class LoopbackRadio:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._rng = np.random.default_rng(seed)
+        self._gen = torch.Generator(device=self.device)
+        self.graphs = GraphCache()
         self.stats = {"datagrams_in": 0, "frames_ok": 0, "frames_crc_fail": 0}
         # headless GUI-sink analogues (constellation / spectrum / SNR),
         # populated when probes=True
@@ -283,22 +371,20 @@ class LoopbackRadio:
             mpdus = _mpdus(self.mac, group)
             b = len(group)
             plan = tx.tx_plan(mcs_now, mpdus.shape[1])
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(self._rng.integers(0, 2**31)))
+            probes = self.probes
+            self._gen.manual_seed(int(self._rng.integers(0, 2**31)))
             foff = chmodel.epsilon_to_frequency_offset(self.epsilon, self.cfg.frequency)
-            bursts = tx.transmit(mpdus, mcs_now, scrambler_seed=torch.arange(b) % 127 + 1,
-                                 device=dev)
-            stream = tx.pad_burst(bursts, 100, 400, scale=0.6).reshape(-1)
-            y = chmodel.channel_model(gen, stream, noise_voltage=1.0, frequency_offset=foff,
-                                      snr_db=self.snr_db)
-            res, cand = sync.receive(y, plan, max_frames=2 * b, cfg=self.cfg, algo=algo_now,
-                                     device=dev)
-            psdu = res.psdu.cpu().numpy()
-            ok = (cand.valid & res.sig["parity_ok"]).cpu().numpy()
-            eq = None
-            if self.probes:
-                self.spectrum.update(y[: 1 << 13].cpu().numpy())
-                eq = res.eq_symbols.cpu().numpy()
+            inputs = _staged(dev, mpdus, np.arange(b) % 127 + 1, self.snr_db, foff)
+            fn = functools.partial(loopback_group, plan=plan, cfg=self.cfg, algo=algo_now,
+                                   probes=probes, generator=self._gen)
+            if dev.type == "cuda":
+                key = (mcs_now, mpdus.shape[1], b, int(algo_now), probes)
+                packed = self.graphs(key, fn, inputs, generators=(self._gen,))
+            else:
+                packed = fn(*inputs)
+            psdu, ok, eq, head = group_fields(packed.cpu().numpy(), plan, b, probes)
+            if head is not None:
+                self.spectrum.update(head)
             for i in np.flatnonzero(ok):
                 frame = macmod.parse(psdu[i].tobytes())
                 if not frame.fcs_ok:
@@ -338,7 +424,9 @@ class TxRadio:
     format) in _SAMP_CHUNK-sample datagrams. A batch is grouped by payload
     length and each group is sent as it is, with scrambler seeds 1..B (the
     JAX package pads a group up to ``batch`` with copies for its jit
-    cache; the port sends no copies).
+    cache; the port sends no copies). On a card a group is one CUDA graph
+    replay (``tx_bursts`` through ``self.graphs``, one graph a key (MCS,
+    MPDU length, group size, scale)).
     """
 
     def __init__(self, in_port: int = 52001, samp_host: str = "127.0.0.1",
@@ -353,6 +441,7 @@ class TxRadio:
         self.batch = batch
         self.cfg = phy_cfg
         self.mac = macmod.Mac()
+        self.graphs = GraphCache()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self.stats = {"datagrams_in": 0, "frames_tx": 0, "samples_tx": 0}
@@ -380,11 +469,17 @@ class TxRadio:
         self.stats["samples_tx"] += int(sc16.shape[0])
 
     def _process(self, payloads: list[bytes]) -> None:
+        dev = self.device
         for group in _by_length(payloads):
             mpdus = _mpdus(self.mac, group)
-            bursts = tx.transmit(mpdus, self.mcs, scrambler_seed=torch.arange(1, len(group) + 1),
-                                 device=self.device)
-            stream = tx.pad_burst(bursts, 100, 1000, scale=self.scale).reshape(-1)
+            b = len(group)
+            plan = tx.tx_plan(self.mcs, mpdus.shape[1])
+            inputs = _staged(dev, mpdus, np.arange(1, b + 1))
+            fn = functools.partial(tx_bursts, plan=plan, scale=self.scale)
+            if dev.type == "cuda":
+                stream = self.graphs((plan.mcs, plan.psdu_len, b, self.scale), fn, inputs)
+            else:
+                stream = fn(*inputs)
             self._emit(stream.cpu().numpy())
             self.stats["frames_tx"] += len(group)
 

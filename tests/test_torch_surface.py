@@ -35,9 +35,6 @@ NAME_MAP = {
     "phy/rx.py:jitted_decode_aligned": (
         "phy/rx.py:decode_aligned", "eager torch compiles nothing: decode_aligned serves "
                                     "every (MCS, length, algo) as it is"),
-    "phy/tx.py:transmit_traced": (
-        "runtime/bridge.py:LoopbackRadio._process", "the batch TX inside the loopback "
-                                                    "radio: tx.transmit on the radio's device"),
     "phy/mac.py:crc32_jax": ("phy/mac.py:crc32", "the batched byte-table CRC-32"),
     "utils/xfer.py:to_host": ("torch:Tensor.numpy", "a tensor's .cpu().numpy() routes "
                                                     "every dtype"),
