@@ -45,6 +45,7 @@ import socket
 import threading
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -77,7 +78,10 @@ def _dropped(radio: str, what: str, e: Exception) -> None:
 
 
 class UdpSource:
-    """UDP server socket -> payload queue (socket_pdu equivalent)."""
+    """UDP server socket -> payload queue (socket_pdu equivalent). The
+    queue is unbounded, so ``dropped`` stays 0."""
+
+    dropped = 0
 
     def __init__(self, host: str = "0.0.0.0", port: int = 52001, mtu: int = 10000):
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -85,7 +89,7 @@ class UdpSource:
         self.sock.bind((host, port))
         self.sock.settimeout(0.2)
         self.port = self.sock.getsockname()[1]
-        self.q: "queue.Queue[bytes]" = queue.Queue()
+        self.q: "queue.Queue[tuple[int, bytes]]" = queue.Queue()   # (receive ns, datagram)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self.mtu = mtu
@@ -98,22 +102,29 @@ class UdpSource:
         while not self._stop.is_set():
             try:
                 data, _ = self.sock.recvfrom(self.mtu)
-                self.q.put(data)
+                self.q.put((time.monotonic_ns(), data))
             except socket.timeout:
                 continue
             except OSError:
                 break
 
-    def drain(self, max_items: int, timeout: float = 0.05) -> list[bytes]:
-        """Collect up to max_items pending datagrams (micro-batching)."""
+    def drain(self, max_items: int, timeout: float = 0.05,
+              stamps: np.ndarray | None = None) -> list[bytes]:
+        """Collect up to max_items pending datagrams (micro-batching). With
+        ``stamps`` (an int64 array of at least max_items), each datagram's
+        receive time (``time.monotonic_ns()`` at ``recvfrom``) goes into its
+        first entries."""
         out = []
         deadline = time.monotonic() + timeout
         while len(out) < max_items:
             try:
                 remaining = max(deadline - time.monotonic(), 0)
-                out.append(self.q.get(timeout=remaining if not out else 0.0))
+                t, data = self.q.get(timeout=remaining if not out else 0.0)
             except queue.Empty:
                 break
+            if stamps is not None:
+                stamps[len(out)] = t
+            out.append(data)
         return out
 
     def stop(self):
@@ -139,15 +150,23 @@ class UdpSink:
         self.sock.close()
 
 
+def _fallback(what: str, reason: str) -> None:
+    warnings.warn(f"{what}: the native one is unavailable, the Python one runs ({reason})",
+                  RuntimeWarning, stacklevel=3)
+
+
 def make_udp_source(host: str = "0.0.0.0", port: int = 52001, mtu: int = 10000):
     """socket_pdu source factory: the native C++ receive thread when the
-    toolchain is available, the Python thread otherwise. Both expose
-    start()/drain()/stop()/.port."""
-    if native.available():
+    toolchain is available, the Python thread otherwise, with a
+    RuntimeWarning that says why. Both expose start()/drain()/dropped/
+    stop()/.port."""
+    if not native.available():
+        _fallback("UDP source", "no native library: g++ is missing or its build failed")
+    else:
         try:
             return native.NativeUdpSource(host, port, mtu)
-        except OSError:
-            pass
+        except OSError as e:
+            _fallback("UDP source", f"OSError: {e}")
     return UdpSource(host, port, mtu)
 
 
@@ -165,12 +184,15 @@ class NativeExtractSink:
 
 
 def make_udp_sink(host: str = "127.0.0.1", port: int = 10010):
-    """Extract-Pics sink factory (native when available)."""
-    if native.available():
+    """Extract-Pics sink factory (native when available; otherwise the
+    Python socket, with a RuntimeWarning that says why)."""
+    if not native.available():
+        _fallback("UDP sink", "no native library: g++ is missing or its build failed")
+    else:
         try:
             return NativeExtractSink(host, port)
-        except OSError:
-            pass
+        except OSError as e:
+            _fallback("UDP sink", f"OSError: {e}")
     return UdpSink(host, port)
 
 
@@ -280,6 +302,19 @@ class LoopbackRadio:
     group size, equalizer, probes), at most ``batch`` group sizes a length;
     the generator registered with each graph); its first group of a key
     captures the graph, on the radio's thread.
+
+    ``tracer`` (a ``Tracer(prefix="radio")``) times each group's stages,
+    which together cover the batch: ``frame`` (MAC framing), ``upload``
+    (the group's inputs on the device), ``replay`` (the graph, or the eager
+    call), ``fetch`` (the host's wait on the group's device work) and
+    ``parse`` (fields, FCS, probes, and each payload's send as soon as it
+    is parsed); while a profiler records on the radio's thread each is a
+    ``radio.<stage>`` range, inside a ``radio.batch`` range around the
+    whole ``_process`` call (a call a batch, frames its datagrams). ``send``
+    is the sends' own time inside ``parse``. It counts ``group`` (a call a
+    group, frames its size), ``queue`` (each datagram's wait from its
+    receive to its batch's start, summed into seconds) and ``dropped``
+    (datagrams the source discarded, in frames).
     """
 
     def __init__(
@@ -297,6 +332,7 @@ class LoopbackRadio:
         device="cuda",
     ):
         self.device = resolve(device)
+        self.tracer = tracing.Tracer(prefix="radio")
         self.source = make_udp_source(port=in_port)
         self.sink = make_udp_sink(out_host, out_port)
         self.mcs = mcs
@@ -367,41 +403,65 @@ class LoopbackRadio:
         mcs_now = self.mcs
         algo_now = self.chan_est
         dev = self.device
-        for group in _by_length(payloads):
-            mpdus = _mpdus(self.mac, group)
-            b = len(group)
-            plan = tx.tx_plan(mcs_now, mpdus.shape[1])
-            probes = self.probes
-            self._gen.manual_seed(int(self._rng.integers(0, 2**31)))
-            foff = chmodel.epsilon_to_frequency_offset(self.epsilon, self.cfg.frequency)
-            inputs = _staged(dev, mpdus, np.arange(b) % 127 + 1, self.snr_db, foff)
-            fn = functools.partial(loopback_group, plan=plan, cfg=self.cfg, algo=algo_now,
-                                   probes=probes, generator=self._gen)
-            if dev.type == "cuda":
-                key = (mcs_now, mpdus.shape[1], b, int(algo_now), probes)
-                packed = self.graphs(key, fn, inputs, generators=(self._gen,))
-            else:
-                packed = fn(*inputs)
-            psdu, ok, eq, head = group_fields(packed.cpu().numpy(), plan, b, probes)
-            if head is not None:
-                self.spectrum.update(head)
-            for i in np.flatnonzero(ok):
-                frame = macmod.parse(psdu[i].tobytes())
-                if not frame.fcs_ok:
-                    self.stats["frames_crc_fail"] += 1
-                    continue
-                self.stats["frames_ok"] += 1
-                if eq is not None:
-                    self.constellation.push(eq[i])
-                    self.snr_probe.update(eq[i])
-                self.sink.send_mac_payload(frame.payload)
+        stage = self.tracer.stage
+        # the host's time between two stages lies in a range too
+        with stage("batch", frames=len(payloads)):
+            for group in _by_length(payloads):
+                b = len(group)
+                self.tracer.count("group", frames=b)
+                with stage("frame", frames=b):
+                    mpdus = _mpdus(self.mac, group)
+                    plan = tx.tx_plan(mcs_now, mpdus.shape[1])
+                with stage("upload", frames=b):
+                    probes = self.probes
+                    self._gen.manual_seed(int(self._rng.integers(0, 2**31)))
+                    foff = chmodel.epsilon_to_frequency_offset(self.epsilon, self.cfg.frequency)
+                    inputs = _staged(dev, mpdus, np.arange(b) % 127 + 1, self.snr_db, foff)
+                with stage("replay", frames=b):
+                    fn = functools.partial(loopback_group, plan=plan, cfg=self.cfg, algo=algo_now,
+                                           probes=probes, generator=self._gen)
+                    if dev.type == "cuda":
+                        key = (mcs_now, mpdus.shape[1], b, int(algo_now), probes)
+                        packed = self.graphs(key, fn, inputs, generators=(self._gen,))
+                    else:
+                        packed = fn(*inputs)
+                with stage("fetch", frames=b):          # the host waits on the group's device work
+                    packed = packed.cpu().numpy()
+                send_s, sent = 0.0, 0
+                with stage("parse", frames=b):
+                    psdu, ok, eq, head = group_fields(packed, plan, b, probes)
+                    if head is not None:
+                        self.spectrum.update(head)
+                    for i in np.flatnonzero(ok):
+                        frame = macmod.parse(psdu[i].tobytes())
+                        if not frame.fcs_ok:
+                            self.stats["frames_crc_fail"] += 1
+                            continue
+                        self.stats["frames_ok"] += 1
+                        if eq is not None:
+                            self.constellation.push(eq[i])
+                            self.snr_probe.update(eq[i])
+                        t = time.perf_counter()
+                        self.sink.send_mac_payload(frame.payload)
+                        send_s += time.perf_counter() - t
+                        sent += 1
+                self.tracer.add("send", send_s, frames=sent)     # inside `parse`
 
     def _run(self):
+        stamps = np.empty(self.batch, dtype=np.int64)    # the datagrams' receive times, ns
+        dropped = self.source.dropped
         while not self._stop.is_set():
-            payloads = self.source.drain(self.batch, timeout=0.1)
+            payloads = self.source.drain(self.batch, 0.1, stamps)
             if not payloads:
                 continue
-            self.stats["datagrams_in"] += len(payloads)
+            n = len(payloads)
+            self.stats["datagrams_in"] += n
+            t = time.monotonic_ns()
+            # each datagram's wait from its receive to its batch's start
+            self.tracer.add("queue", seconds=float(np.sum(t - stamps[:n])) / 1e9, frames=n)
+            now = self.source.dropped
+            self.tracer.count("dropped", frames=now - dropped, calls=0)
+            dropped = now
             try:
                 self._process(payloads)
             except Exception as e:  # keep the radio alive on bad input

@@ -1,9 +1,11 @@
-"""ctypes loader and wrappers for the native host runtime (native/gwt_native.cpp).
+"""ctypes loader and wrappers for the native host runtime (csrc/gwt_native.cpp).
 
 The reference's host runtime is C++: GNU Radio's ring-buffer scheduler,
 the socket_pdu UDP bridge (IRS_user.grc:299-318) and the ieee802_11.mac
-framer/CRC (IRS_user.py:192). This module exposes the same C++ source as
-the JAX package's runtime/native.py does, with the same Python surface:
+framer/CRC (IRS_user.py:192). This module builds the port's copy of the
+C++ source that the JAX package's runtime/native.py builds
+(native/gwt_native.cpp), with the same Python surface; the copy's UDP
+source also stamps each datagram's receive time and counts its drops:
 
     RingBuffer       lock-free SPSC complex64 sample ring
     NativeUdpSource  threaded UDP PDU receiver (GIL-free recv loop)
@@ -35,7 +37,7 @@ import numpy as np
 
 from gnuradio_wifi_imagetransfer_tpu_torch.ops.build import BUILD_DIR
 
-SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / "gwt_native.cpp"
+SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "gwt_native.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
@@ -104,7 +106,9 @@ def bind(path) -> ctypes.CDLL:
     lib.gwt_udp_source_port.restype = cint
     lib.gwt_udp_source_port.argtypes = [vp]
     lib.gwt_udp_source_drain.restype = cint
-    lib.gwt_udp_source_drain.argtypes = [vp, u8p, i64, i32p, cint, cint]
+    lib.gwt_udp_source_drain.argtypes = [vp, u8p, i64, i32p, i64p, cint, cint]
+    lib.gwt_udp_source_dropped.restype = i64
+    lib.gwt_udp_source_dropped.argtypes = [vp]
     lib.gwt_udp_source_destroy.restype = None
     lib.gwt_udp_source_destroy.argtypes = [vp]
     lib.gwt_udp_sink_create.restype = vp
@@ -277,13 +281,27 @@ class NativeUdpSource:
     def start(self):
         return self  # thread starts at construction; API parity with bridge
 
-    def drain(self, max_items: int, timeout: float = 0.05) -> list[bytes]:
-        """Up to max_items queued datagrams, waiting up to timeout for the first."""
+    @property
+    def dropped(self) -> int:
+        """Datagrams discarded so far because ``max_queue`` were queued
+        (the newest are kept)."""
+        return int(self._lib.gwt_udp_source_dropped(self._h))
+
+    def drain(self, max_items: int, timeout: float = 0.05,
+              stamps: np.ndarray | None = None) -> list[bytes]:
+        """Up to max_items queued datagrams, waiting up to timeout for the
+        first. With ``stamps`` (an int64 array of at least max_items), each
+        datagram's receive time, ``time.monotonic_ns()``'s clock, goes into
+        its first entries."""
         buf = np.empty(max_items * self.mtu, dtype=np.uint8)
         lens = np.empty(max_items, dtype=np.int32)
+        if stamps is not None and (stamps.dtype != np.int64 or stamps.size < max_items
+                                   or not stamps.flags.c_contiguous):
+            raise ValueError("drain: stamps must be a contiguous int64 array of max_items")
         n = int(self._lib.gwt_udp_source_drain(
             self._h, _u8(buf), buf.size,
             lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            None if stamps is None else stamps.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
             max_items, int(timeout * 1000)))
         out, off = [], 0
         for i in range(n):

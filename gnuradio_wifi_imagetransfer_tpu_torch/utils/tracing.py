@@ -3,7 +3,8 @@ per-frame EVM SNR probe, the radios' headless GUI-sink probes and a
 profiler scope (the JAX package's utils/tracing.py).
 
     Tracer        thread-safe per-stage counters (samples, frames, calls,
-                  seconds) with a ``stage()`` timing context manager;
+                  seconds) with a ``stage()`` timing context manager,
+                  which with a prefix is also a profiler range;
     evm_snr_db    batched EVM -> SNR metric of equalized frames, on the
                   symbols' device;
     SnrProbe      EWMA second/fourth-moment SNR estimator matching the
@@ -30,7 +31,7 @@ wrapper's module attribute, so that a run's calls can be made again
 through the kernel and its plain version (``ops.holds``).
 
 The executors feed their Tracer's stages; the radios (runtime/bridge.py)
-feed the three probes.
+feed the three probes, and LoopbackRadio its own ``radio.*`` stages.
 """
 
 from __future__ import annotations
@@ -63,10 +64,42 @@ class StageStats:
         return self.samples / self.seconds / 1e6 if self.seconds > 0 else 0.0
 
 
-class Tracer:
-    """Thread-safe per-stage counter registry."""
+class _Stage:
+    """One ``Tracer.stage`` invocation. A plain class and not a generator's
+    context manager: between a batch's device calls the latter costs about
+    twice as much, and a radio opens some ten stages a batch."""
 
-    def __init__(self):
+    __slots__ = ("tracer", "name", "samples", "frames", "t0", "rng")
+
+    def __init__(self, tracer: "Tracer", name: str, samples: int, frames: int):
+        self.tracer, self.name, self.samples, self.frames = tracer, name, samples, frames
+        self.rng = None
+
+    def __enter__(self) -> None:
+        prefix = self.tracer.prefix
+        if prefix is not None and torch.autograd._profiler_enabled():
+            self.rng = torch.profiler.record_function(f"{prefix}.{self.name}")
+            self.rng.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self.t0
+        if self.rng is not None:
+            self.rng.__exit__(None, None, None)
+        self.tracer.add(self.name, dt, self.samples, self.frames)
+
+
+class Tracer:
+    """Thread-safe per-stage counter registry.
+
+    With a ``prefix``, each ``stage(name)`` is also a
+    ``torch.profiler.record_function`` range ``<prefix>.<name>`` while a
+    profiler records on the calling thread, so the stages sit on the
+    profiler's timeline beside the kernels they launch and inside the
+    caller's own ranges; with no profiler a stage opens no range."""
+
+    def __init__(self, prefix: str | None = None):
+        self.prefix = prefix
         self._lock = threading.Lock()
         self._stages: dict[str, StageStats] = {}
 
@@ -75,28 +108,23 @@ class Tracer:
             self._stages[name] = StageStats()
         return self._stages[name]
 
-    @contextlib.contextmanager
-    def stage(self, name: str, samples: int = 0, frames: int = 0):
+    def stage(self, name: str, samples: int = 0, frames: int = 0) -> "_Stage":
         """Time a stage invocation (host clock) and attribute samples/frames."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                s = self._get(name)
-                s.calls += 1
-                s.seconds += dt
-                s.samples += samples
-                s.frames += frames
+        return _Stage(self, name, samples, frames)
 
-    def count(self, name: str, samples: int = 0, frames: int = 0, calls: int = 1):
-        """Attribute counts to a stage without timing it."""
+    def add(self, name: str, seconds: float, samples: int = 0, frames: int = 0,
+            calls: int = 1):
+        """Attribute a duration measured elsewhere (seconds), with its counts."""
         with self._lock:
             s = self._get(name)
             s.calls += calls
+            s.seconds += seconds
             s.samples += samples
             s.frames += frames
+
+    def count(self, name: str, samples: int = 0, frames: int = 0, calls: int = 1):
+        """Attribute counts to a stage without timing it."""
+        self.add(name, 0.0, samples, frames, calls)
 
     def report(self) -> dict[str, StageStats]:
         with self._lock:

@@ -1,6 +1,8 @@
-"""The port's native host runtime loader (runtime/native.py) over
-native/gwt_native.cpp: twins of tests/test_native.py's 9 cases, the
-atomic first build, and the port's frame_batch on both paths.
+"""The port's native host runtime loader (runtime/native.py) over its
+copy of native/gwt_native.cpp (csrc/gwt_native.cpp): twins of
+tests/test_native.py's 9 cases, the
+atomic first build, the port's frame_batch on both paths, and the UDP
+source's receive stamps and drop count.
 
 The library builds into the port's own git-ignored _build/ (or a test's
 temporary directory), never into native/. A test skips only when g++ is
@@ -118,6 +120,71 @@ def test_udp_bridge_roundtrip(lib):
     assert sorted(got) == sorted(msgs)
     src.stop()
     sink.close()
+
+
+def _send_all(port, msgs):
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    for m in msgs:
+        s.sendto(m, ("127.0.0.1", port))
+    s.close()
+
+
+def _drain_all(src, want, stamped=False):
+    got, stamps = [], []
+    st = np.empty(8, dtype=np.int64)
+    for _ in range(50):
+        out = src.drain(8, 0.1, st if stamped else None)
+        if stamped:
+            stamps.extend(st[:len(out)].tolist())
+        got.extend(out)
+        if len(got) >= want:
+            break
+    return got, stamps
+
+
+def test_udp_source_stamps_lie_between_send_and_drain(lib):
+    import time
+
+    src = lib.NativeUdpSource(host="127.0.0.1", port=0)
+    msgs = [bytes([i]) * (20 + i) for i in range(6)]
+    try:
+        t0 = time.monotonic_ns()
+        _send_all(src.port, msgs)
+        got, stamps = _drain_all(src, len(msgs), stamped=True)
+        t1 = time.monotonic_ns()
+        assert got == msgs and len(stamps) == len(msgs)
+        assert all(t0 <= t <= t1 for t in stamps), (t0, stamps, t1)
+        assert stamps == sorted(stamps)
+        assert src.dropped == 0
+        _send_all(src.port, msgs[:2])                 # drain() hands over what it always did
+        assert _drain_all(src, 2)[0] == msgs[:2]
+        st = np.full(4, -1, dtype=np.int64)
+        assert src.drain(4, 0.0, st) == [] and (st == -1).all()
+    finally:
+        src.stop()
+
+
+def test_udp_source_drops_the_oldest_and_counts_them(lib):
+    import time
+
+    q, k = 4, 3
+    src = lib.NativeUdpSource(host="127.0.0.1", port=0, max_queue=q)
+    msgs = [bytes([i]) * 12 for i in range(q + k)]
+    try:
+        _send_all(src.port, msgs)
+        deadline = time.monotonic() + 10.0
+        while src.dropped < k and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert src.dropped == k
+        got, stamps = _drain_all(src, q, stamped=True)
+        assert got == msgs[k:] and len(stamps) == q
+        assert src.drain(8, timeout=0.05) == [] and src.dropped == k
+        with pytest.raises(ValueError, match="stamps"):
+            src.drain(8, stamps=np.empty(2, np.int64))
+    finally:
+        src.stop()
 
 
 def test_scatter_bursts(lib):

@@ -486,6 +486,118 @@ def test_python_udp_source_and_sink_roundtrip():
     bridge.UdpSource("127.0.0.1", 0).stop()            # before start()
 
 
+def test_python_udp_source_stamps_and_no_drops():
+    src = bridge.UdpSource("127.0.0.1", 0).start()
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        t0 = time.monotonic_ns()
+        for i in range(3):
+            s.sendto(b"data%d" % i, ("127.0.0.1", src.port))
+        got, stamps = [], []
+        st = np.empty(8, dtype=np.int64)
+        for _ in range(20):
+            out = src.drain(8, 0.1, st)
+            got += out
+            stamps += st[:len(out)].tolist()
+            if len(got) == 3:
+                break
+        t1 = time.monotonic_ns()
+        assert got == [b"data0", b"data1", b"data2"] and len(stamps) == 3
+        assert all(t0 <= t <= t1 for t in stamps) and stamps == sorted(stamps)
+        assert src.dropped == 0
+    finally:
+        s.close()
+        src.stop()
+
+
+@pytest.mark.parametrize("fault", ["no library", "OSError"])
+def test_udp_factories_warn_when_they_fall_back(monkeypatch, fault):
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native
+
+    def refuse(*a, **kw):
+        raise OSError("refused")
+
+    if fault == "no library":
+        monkeypatch.setattr(native, "available", lambda: False)
+        match = "no native library"
+    else:
+        monkeypatch.setattr(native, "available", lambda: True)
+        monkeypatch.setattr(native, "NativeUdpSource", refuse)
+        monkeypatch.setattr(native, "NativeUdpSink", refuse)
+        match = "OSError: refused"
+    with pytest.warns(RuntimeWarning, match=match):
+        src = bridge.make_udp_source("127.0.0.1", 0)
+    with pytest.warns(RuntimeWarning, match=match):
+        sink = bridge.make_udp_sink("127.0.0.1", src.port)
+    assert type(src) is bridge.UdpSource and type(sink) is bridge.UdpSink
+    src.stop()
+    sink.close()
+
+
+def test_loopback_radio_traces_its_batch_stages_queue_and_drops():
+    """One batch of two payload lengths, queued before the radio's loop
+    runs: two groups, each a fetch, one batch, every datagram's wait."""
+    rx = _app_socket()
+    radio = LoopbackRadio(in_port=0, out_port=rx.getsockname()[1], mcs=3, snr_db=25.0,
+                          batch=8, device="cpu")
+    payloads = [b"\0\0\0\x1e" + bytes([i]) * 30 for i in range(3)]
+    payloads += [b"\0\0\0\x28" + bytes([i]) * 40 for i in range(2)]
+    process = radio._process
+
+    def once(batch):
+        process(batch)
+        radio._stop.set()
+    radio._process = once
+    radio.source.start()
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        t0 = time.monotonic_ns()
+        for p in payloads:
+            s.sendto(p, ("127.0.0.1", radio.in_port))
+        time.sleep(0.3)                            # every datagram queued in the source
+        radio._run()                               # one batch, on this thread
+        waited_max = (time.monotonic_ns() - t0) / 1e9
+        got = sorted(rx.recvfrom(65536)[0] for _ in payloads)
+        assert got == sorted(p[4:] for p in payloads)
+        st = radio.tracer.report()
+        assert radio.tracer.prefix == "radio"
+        assert (st["batch"].calls, st["batch"].frames) == (1, len(payloads))
+        assert (st["group"].calls, st["group"].frames) == (2, len(payloads))
+        five = ("frame", "upload", "replay", "fetch", "parse")
+        for name in five + ("send",):
+            assert st[name].calls == 2 and st[name].seconds > 0, name
+        assert sum(st[n].seconds for n in five) <= st["batch"].seconds
+        assert st["send"].seconds < st["parse"].seconds         # each send inside `parse`
+        assert st["send"].frames == len(payloads)
+        assert st["queue"].frames == len(payloads)
+        # each waited the sleep, less its own way to the source's thread
+        assert 0.2 * len(payloads) <= st["queue"].seconds <= waited_max * len(payloads)
+        assert (st["dropped"].calls, st["dropped"].frames) == (0, 0)
+    finally:
+        s.close()
+        radio.stop()
+        rx.close()
+
+
+def test_loopback_radio_sends_each_payload_as_soon_as_it_is_parsed(monkeypatch):
+    """Inside a group, each payload leaves before the next frame's parse."""
+    rx = _app_socket()
+    radio = LoopbackRadio(in_port=0, out_port=rx.getsockname()[1], mcs=3, snr_db=25.0,
+                          batch=8, device="cpu")
+    events = []
+    parse, send = bridge.macmod.parse, radio.sink.send_mac_payload
+    monkeypatch.setattr(bridge.macmod, "parse", lambda b: events.append("parse") or parse(b))
+    radio.sink.send_mac_payload = lambda p: events.append("send") or send(p)
+    try:
+        radio._process([b"\0\0\0\x1e" + bytes([i]) * 30 for i in range(3)])
+        assert events == ["parse", "send"] * 3
+        assert sorted(rx.recvfrom(65536)[0] for _ in range(3)) == [bytes([i]) * 30
+                                                                   for i in range(3)]
+    finally:
+        radio.stop()
+        rx.close()
+
+
 def test_app_config_matches_jax():
     got, want = config.AppConfig(), jconfig.AppConfig()
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]

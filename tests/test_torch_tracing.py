@@ -1,7 +1,8 @@
 """The port's observability (utils/tracing.py) against the JAX package's:
 the Tracer's summary and reset, the three GUI-sink probes on the same
 numpy input (equal outputs: both run the same numpy arithmetic), and the
-torch.profiler scope."""
+torch.profiler scope. The port's own: ``Tracer.add`` and a prefixed
+Tracer's stages as profiler ranges."""
 
 import json
 import pathlib
@@ -36,6 +37,53 @@ def test_tracer_counts_summary_and_reset():
     tr.count("demod", samples=1500, frames=2, calls=2)
     assert tr.summary() == jt.summary()
     assert tracing.default_tracer() is tracing.default_tracer()
+
+
+def test_tracer_add_attributes_a_duration_measured_elsewhere():
+    tr = tracing.Tracer()
+    tr.add("queue", 0.25, frames=3)
+    tr.add("queue", 0.5, samples=7, frames=1, calls=2)
+    tr.count("queue", frames=1, calls=0)
+    q = tr.report()["queue"]
+    assert (q.calls, q.seconds, q.samples, q.frames) == (3, 0.75, 7, 5)
+
+
+def _ranges(prof, prefix):
+    return [e for e in prof.events() if e.name.startswith(prefix)]
+
+
+def test_prefixed_stage_is_a_range_inside_the_callers_under_a_profiler():
+    tr = tracing.Tracer(prefix="radio")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("outer"):
+            with tr.stage("fetch", frames=2):
+                torch.ones(8).sum()
+    (outer,), (fetch,) = _ranges(prof, "outer"), _ranges(prof, "radio.")
+    assert fetch.name == "radio.fetch"
+    assert outer.time_range.start <= fetch.time_range.start
+    assert fetch.time_range.end <= outer.time_range.end
+    assert any(e.name == "aten::sum" and fetch.time_range.start <= e.time_range.start
+               and e.time_range.end <= fetch.time_range.end for e in prof.events())
+    st = tr.report()["fetch"]
+    assert (st.calls, st.frames) == (1, 2) and st.seconds > 0
+
+
+def test_stage_opens_no_range_without_a_profiler_or_a_prefix(monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    with tracing.Tracer(prefix="radio").stage("fetch"):        # no profiler
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.Tracer().stage("fetch"):                  # no prefix
+            pass
+    assert opened == []
+    assert not [e for e in prof.events() if "fetch" in e.name]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracing.Tracer(prefix="radio").stage("fetch"):
+            pass
+    assert opened == ["radio.fetch"]
 
 
 def _qpsk(rng, n, snr_db):
@@ -129,13 +177,20 @@ def test_evm_snr_db_tracks_noise():
         assert bool((est - snr_db).abs().max() < 2.0), (snr_db, est)
 
 
+# parameters the port adds after the JAX package's, each with a default
+PORT_ONLY_PARAMETERS = {"Tracer": ["prefix"]}
+
+
 @pytest.mark.parametrize("name", ["SnrProbe", "ConstellationProbe", "SpectrumProbe",
                                   "Tracer", "StageStats", "profile", "default_tracer"])
 def test_tracing_api_matches_jax(name):
     import inspect
 
     ours, theirs = getattr(tracing, name), getattr(jtracing, name)
-    assert inspect.signature(ours).parameters.keys() == inspect.signature(theirs).parameters.keys()
+    params = inspect.signature(ours).parameters
+    extra = PORT_ONLY_PARAMETERS.get(name, [])
+    assert list(params) == list(inspect.signature(theirs).parameters) + extra
+    assert all(params[p].default is not inspect.Parameter.empty for p in extra)
     if inspect.isclass(ours):
         public = {n for n in dir(theirs) if not n.startswith("_")}
         assert public <= set(dir(ours)), public - set(dir(ours))
