@@ -17,7 +17,10 @@
 //     policy discards (the stamps_ns of gwt_udp_source_drain,
 //     gwt_udp_source_dropped);
 //   * table-driven CRC-32 (IEEE, reflected) and a batched 802.11 data-MPDU
-//     framer / FCS checker (the ieee802_11.mac hot loop).
+//     framer / FCS checker (the ieee802_11.mac hot loop);
+//   * the receiver's one-pass wire quantizer (float32 I/Q pairs -> sc16,
+//     sc8 or f32 wire samples), utils/xfer.py quantize_wire in one read and
+//     one write.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
 // (gnuradio_wifi_imagetransfer_tpu_torch/runtime/native.py); every entry
@@ -28,6 +31,7 @@
 
 #include <atomic>
 #include <chrono>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
@@ -36,6 +40,10 @@
 #include <string>
 #include <thread>
 #include <vector>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 #include <arpa/inet.h>
 #include <netinet/in.h>
@@ -356,6 +364,63 @@ void gwt_scatter_bursts(const float* bursts, int64_t b, int64_t l,
         const float* src = bursts + i * l * 2;
         float* dst = out + pos * 2;
         for (int64_t k = 0; k < count * 2; ++k) dst[k] += scale * src[k];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Wire quantizer (utils/xfer.py quantize_wire): n float32 values (I/Q pairs
+// interleaved) -> n wire values in one pass. sc16 and sc8 scale in float32,
+// clamp in float32 to the integer range, and round to nearest even
+// (cvtps2dq under the default MXCSR, np.round's rule); clamping before the
+// rounding gives the same integers as numpy's round-then-clip because both
+// bounds are integers. fmt: 0 f32 (a copy), 1 sc16, 2 sc8. SSE2 (baseline
+// x86-64); elsewhere the scalar loop alone, nearbyint under the default
+// rounding mode.
+// ---------------------------------------------------------------------------
+
+static inline int32_t quantize_one(float v, float k, float lo, float hi) {
+    v *= k;
+    v = v < lo ? lo : v;
+    v = v > hi ? hi : v;
+#if defined(__SSE2__)
+    return _mm_cvtss_si32(_mm_set_ss(v));
+#else
+    return (int32_t)std::nearbyint(v);
+#endif
+}
+
+void gwt_quantize_wire(const float* riq, int64_t n, int fmt, void* out) {
+    if (fmt == 0) {
+        std::memcpy(out, riq, sizeof(float) * (size_t)n);
+        return;
+    }
+    const bool sc16 = fmt == 1;
+    const float k = sc16 ? 32767.0f / 4.0f : 127.0f / 2.0f;
+    const float lo = sc16 ? -32768.0f : -128.0f, hi = sc16 ? 32767.0f : 127.0f;
+    int64_t i = 0;
+#if defined(__SSE2__)
+    const __m128 vk = _mm_set1_ps(k), vlo = _mm_set1_ps(lo), vhi = _mm_set1_ps(hi);
+    auto four = [&](int64_t j) {
+        __m128 v = _mm_mul_ps(_mm_loadu_ps(riq + j), vk);
+        return _mm_cvtps_epi32(_mm_min_ps(_mm_max_ps(v, vlo), vhi));
+    };
+    if (sc16) {
+        for (; i + 8 <= n; i += 8)
+            _mm_storeu_si128(reinterpret_cast<__m128i*>(static_cast<int16_t*>(out) + i),
+                             _mm_packs_epi32(four(i), four(i + 4)));
+    } else {
+        for (; i + 16 <= n; i += 16)
+            _mm_storeu_si128(reinterpret_cast<__m128i*>(static_cast<int8_t*>(out) + i),
+                             _mm_packs_epi16(_mm_packs_epi32(four(i), four(i + 4)),
+                                             _mm_packs_epi32(four(i + 8), four(i + 12))));
+    }
+#endif
+    for (; i < n; ++i) {
+        int32_t q = quantize_one(riq[i], k, lo, hi);
+        if (sc16)
+            static_cast<int16_t*>(out)[i] = (int16_t)q;
+        else
+            static_cast<int8_t*>(out)[i] = (int8_t)q;
     }
 }
 

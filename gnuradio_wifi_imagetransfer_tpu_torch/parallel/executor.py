@@ -7,7 +7,9 @@ share the scaffolding of ``_StreamExecutorBase``. In local mode
   * ``run`` pads and wire-formats the whole (channels, n) stream once,
     HALO_LEFT zeros in front and zeros behind out to the last step's
     extent plus ``_resident_right_pad()``, and ships it to the device,
-    where it stays resident;
+    where it stays resident. On a CUDA device each channel is quantized
+    into one reused page-locked buffer and its copy is queued at once, so
+    it crosses while the next channel is quantized;
   * each step cuts ``time_shards`` overlapping extended blocks (HALO_LEFT
     + block + halo_right samples) per channel out of the resident stream
     on the device, decodes the wire format and runs sync over every block
@@ -88,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 
 import numpy as np
 import torch
@@ -108,8 +111,10 @@ from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.xfer import (
     WIRE_DTYPES,
+    WIRE_TORCH_DTYPES,
     from_wire,
     quantize_wire,
+    quantize_wire_into,
     to_riq,
 )
 
@@ -223,7 +228,17 @@ class _StreamExecutorBase:
         self.time_shards = exec_cfg.time_shards if mesh is None else mesh.shape["time"]
         self.ext_len = HALO_LEFT + self.block + self.halo_right
         self._dev_stream: torch.Tensor | None = None
+        self._wire_host: torch.Tensor | None = None     # page-locked, CUDA only
+        self._wire_copied: torch.cuda.Event | None = None
         self.graphs = GraphCache()      # the local steps' CUDA graphs
+        from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native   # runtime imports us
+
+        # the quantizer's first build happens here, not inside a timed run
+        self._native_wire = native.available()
+        if not self._native_wire:
+            warnings.warn("wire quantizer: the native one is unavailable, numpy runs (no native "
+                          "library: g++ is missing or its build failed)", RuntimeWarning,
+                          stacklevel=2)
         if mesh is not None and self.frontend is not None:
             # front-end mesh mode cuts extended input-rate windows on the
             # host; a general ratio raises here (local mode only)
@@ -249,18 +264,47 @@ class _StreamExecutorBase:
         """Zeros the resident stream carries past the last step's extent."""
         return self.halo_right
 
-    def _pad_wire(self, x: np.ndarray) -> np.ndarray:
+    def _wire_buffer(self, shape: tuple[int, ...]) -> np.ndarray:
+        """The host buffer ``_pad_wire`` writes. On a CUDA device the
+        executor's one page-locked buffer, reallocated only when the shape
+        or the format changes, and written only once the copies out of it
+        have completed; elsewhere a fresh array (the CPU device's tensor
+        aliases it)."""
+        fmt = self.cfg.wire_format
+        if self.device.type != "cuda":
+            return np.empty(shape, WIRE_DTYPES[fmt])
+        host = self._wire_host
+        if host is None or tuple(host.shape) != shape or host.dtype != WIRE_TORCH_DTYPES[fmt]:
+            self._wire_host = host = torch.empty(shape, dtype=WIRE_TORCH_DTYPES[fmt],
+                                                 pin_memory=True)
+            self._wire_copied = torch.cuda.Event()
+            self.tracer.add("wire_alloc", 0.0)
+        else:
+            self._wire_copied.synchronize()
+        return host.numpy()
+
+    def _pad_wire(self, x: np.ndarray, dst: torch.Tensor | None = None) -> np.ndarray:
         """(C, n) complex stream -> (C, Np, 2) zero-padded wire tensor:
         HALO_LEFT zeros in front, zeros behind out to the last step's full
         extent plus the right pad. Quantizes per channel straight into the
-        wire buffer."""
+        wire buffer (``_wire_buffer``), zeroing each row's head and tail,
+        so a shorter stream leaves no earlier one's samples behind. With
+        ``dst``, the (C, Np, 2) device tensor, each row's copy from the
+        page-locked buffer is queued on the current stream as soon as the
+        row is written."""
         c, n = x.shape
-        out = np.zeros((c, self.padded_out_len(n), 2),
-                       dtype=WIRE_DTYPES[self.cfg.wire_format])
+        fmt = self.cfg.wire_format
+        out = self._wire_buffer((c, self.padded_out_len(n), 2))
+        if not self._native_wire:
+            self.tracer.add("wire_fallback", 0.0)
         for ch in range(c):
-            out[ch, HALO_LEFT: HALO_LEFT + n] = quantize_wire(
-                to_riq(np.ascontiguousarray(x[ch], dtype=np.complex64)),
-                self.cfg.wire_format)
+            out[ch, :HALO_LEFT] = 0
+            quantize_wire_into(to_riq(x[ch]), fmt, out[ch, HALO_LEFT: HALO_LEFT + n])
+            out[ch, HALO_LEFT + n:] = 0
+            if dst is not None:
+                dst[ch].copy_(self._wire_host[ch], non_blocking=True)
+        if dst is not None:
+            self._wire_copied.record(torch.cuda.current_stream(dst.device))
         return out
 
     def padded_out_len(self, n_out: int) -> int:
@@ -277,16 +321,24 @@ class _StreamExecutorBase:
 
     def stage_resident(self, stream: np.ndarray) -> None:
         """Pad + wire-format the whole (C, n) stream and ship it once; the
-        steps cut their blocks out of this device copy. With a front-end,
-        the input-rate stream ships and is corrected on the device."""
+        steps cut their blocks out of this device copy. On a CUDA device the
+        rows cross asynchronously while the next are quantized (the steps
+        follow on the same stream); on the CPU the tensor aliases the host
+        buffer. With a front-end, the input-rate stream ships and is
+        corrected on the device."""
         if self.frontend is not None:
             self._stage_resident_frontend(stream)
             return
         c, n = stream.shape
         with self.tracer.stage("layout", samples=c * n):
-            wire = self._pad_wire(stream)
+            dev = None
+            if self.device.type == "cuda":
+                dev = torch.empty((c, self.padded_out_len(n), 2),
+                                  dtype=WIRE_TORCH_DTYPES[self.cfg.wire_format],
+                                  device=self.device)
+            wire = self._pad_wire(stream, dev)
         with self.tracer.stage("transfer", samples=c * n):
-            self._dev_stream = torch.from_numpy(wire).to(self.device)
+            self._dev_stream = dev if dev is not None else torch.from_numpy(wire).to(self.device)
 
     def _stage_resident_frontend(self, stream: np.ndarray) -> None:
         fe = self.frontend
@@ -296,9 +348,8 @@ class _StreamExecutorBase:
         with self.tracer.stage("layout", samples=c * n_in):
             buf = np.zeros((c, n_in_pad, 2), dtype=WIRE_DTYPES[self.cfg.wire_format])
             for ch in range(c):
-                buf[ch, p_in: p_in + n_in] = quantize_wire(
-                    to_riq(np.ascontiguousarray(stream[ch], dtype=np.complex64)),
-                    self.cfg.wire_format)
+                quantize_wire_into(to_riq(stream[ch]), self.cfg.wire_format,
+                                   buf[ch, p_in: p_in + n_in])
         with self.tracer.stage("transfer", samples=c * n_in):
             dev_in = torch.from_numpy(buf).to(self.device)
         with self.tracer.stage("frontend", samples=c * n_in):
@@ -373,8 +424,8 @@ class _StreamExecutorBase:
             out = np.zeros((rows.stop - rows.start, hi - lo, 2), WIRE_DTYPES[fmt])
             hi_in = min(hi, stream.shape[1])
             if hi_in > lo:
-                out[:, : hi_in - lo] = quantize_wire(
-                    to_riq(np.ascontiguousarray(stream[rows, lo:hi_in], dtype=np.complex64)), fmt)
+                for r, ch in enumerate(range(rows.start, rows.stop)):
+                    quantize_wire_into(to_riq(stream[ch, lo:hi_in]), fmt, out[r, : hi_in - lo])
             return out, None
         fe, n_in = self.frontend, stream.shape[1]
         ext_in = fe.block_ext_in(self.ext_len)
@@ -384,8 +435,9 @@ class _StreamExecutorBase:
             in_cut, taus[i] = fe.block_cut(offset + ti * self.block - HALO_LEFT, self.ext_len)
             lo, hi = max(in_cut, 0), min(in_cut + ext_in, n_in)
             if hi > lo:
-                out[:, i, lo - in_cut: hi - in_cut] = quantize_wire(
-                    to_riq(np.ascontiguousarray(stream[rows, lo:hi], dtype=np.complex64)), fmt)
+                for r, ch in enumerate(range(rows.start, rows.stop)):
+                    quantize_wire_into(to_riq(stream[ch, lo:hi]), fmt,
+                                       out[r, i, lo - in_cut: hi - in_cut])
         return out, taus
 
     def _exchange(self, head: torch.Tensor, tail: torch.Tensor):

@@ -11,6 +11,7 @@ source also stamps each datagram's receive time and counts its drops:
     NativeUdpSource  threaded UDP PDU receiver (GIL-free recv loop)
     NativeUdpSink    UDP datagram sender
     crc32 / frame_batch / check_fcs_batch / scatter_bursts   host hot loops
+    (and the receiver's one-pass wire quantizer, called by utils/xfer.py)
 
 The shared library is compiled with g++ at first use into the package's
 ``_build/`` directory (git-ignored), under a name that carries a hash of
@@ -120,6 +121,8 @@ def bind(path) -> ctypes.CDLL:
 
     lib.gwt_scatter_bursts.restype = None
     lib.gwt_scatter_bursts.argtypes = [f32p, i64, i64, i64p, ctypes.c_float, f32p, i64]
+    lib.gwt_quantize_wire.restype = None
+    lib.gwt_quantize_wire.argtypes = [f32p, i64, cint, vp]
     return lib
 
 
@@ -214,6 +217,18 @@ def scatter_bursts(bursts: np.ndarray, positions: np.ndarray, n_out: int,
         pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         float(scale), _f32(out.view(np.float32)), n_out)
     return out
+
+
+# the wire formats' codes in gwt_quantize_wire
+_WIRE_CODES = {"f32": 0, "sc16": 1, "sc8": 2}
+
+
+def _quantize_wire(riq: np.ndarray, wire_format: str, out: np.ndarray) -> None:
+    """The one-pass wire quantizer behind utils/xfer.py
+    ``quantize_wire_into``, which checks the arguments: riq C-contiguous
+    float32, out C-contiguous of riq's size and the format's dtype."""
+    _library().gwt_quantize_wire(_f32(riq), riq.size, _WIRE_CODES[wire_format],
+                                 out.ctypes.data)
 
 
 # ---------------------------------------------------------------------------

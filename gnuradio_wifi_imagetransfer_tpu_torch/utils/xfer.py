@@ -4,6 +4,9 @@ Host side (numpy) quantizes float32 real/imag pairs to the configured wire
 format; device side (torch) turns wire pairs back into complex64. Complex
 data crosses into a kernel as ``torch.view_as_real(x)`` float32 pairs.
 The full scales are the JAX package's (utils/xfer.py:41,56).
+``quantize_wire_into`` writes ``quantize_wire``'s bytes into a buffer the
+caller gives: in one pass of the native library (runtime/native.py) where
+it loads, by a copy of ``quantize_wire``'s result where it does not.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ def quantize_sc8(riq: np.ndarray) -> np.ndarray:
 
 
 WIRE_DTYPES = {"f32": np.float32, "sc16": np.int16, "sc8": np.int8}
+WIRE_TORCH_DTYPES = {"f32": torch.float32, "sc16": torch.int16, "sc8": torch.int8}
 
 
 def quantize_wire(riq: np.ndarray, wire_format: str) -> np.ndarray:
@@ -60,6 +64,29 @@ def quantize_wire(riq: np.ndarray, wire_format: str) -> np.ndarray:
         return riq
     raise ValueError(
         f"unknown wire_format {wire_format!r}: expected f32, sc16 or sc8")
+
+
+def quantize_wire_into(riq: np.ndarray, wire_format: str, out: np.ndarray) -> None:
+    """Host-side: ``quantize_wire(riq, wire_format)`` written into ``out``,
+    a C-contiguous wire array of riq's shape and the format's dtype, byte
+    for byte. The native quantizer reads riq once and writes out once;
+    without the library ``quantize_wire``'s result is copied into out."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.runtime import native
+
+    if wire_format not in WIRE_DTYPES:
+        raise ValueError(
+            f"unknown wire_format {wire_format!r}: expected f32, sc16 or sc8")
+    riq = np.ascontiguousarray(riq, dtype=np.float32)
+    if (out.shape != riq.shape or out.dtype != WIRE_DTYPES[wire_format]
+            or not out.flags.c_contiguous):
+        raise ValueError(
+            f"quantize_wire_into: riq {riq.shape} into out {out.dtype} {out.shape}: "
+            f"expected a C-contiguous {np.dtype(WIRE_DTYPES[wire_format])} array of "
+            f"riq's shape")
+    if native.available():
+        native._quantize_wire(riq, wire_format, out)
+    else:
+        np.copyto(out, quantize_wire(riq, wire_format))
 
 
 def from_wire(x: torch.Tensor) -> torch.Tensor:
