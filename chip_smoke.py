@@ -83,8 +83,13 @@ holds each hand-written kernel against its plain PyTorch version:
  15. the trackers: ``equalize`` with LMS, COMB and STA on the card within
      1e-4 of the CPU on the echo frame of tests/test_equalizer.py (64-QAM
      3/4, 400 bytes, an 8-sample echo by ``channel.multipath`` that grows
-     and rotates), which LMS decodes bit-exact and LS does not; the
-     adaptive executor with ``PhyConfig(chan_est=LMS)`` against the CPU;
+     and rotates), which LMS decodes bit-exact and LS does not, LMS and
+     STA one K5 launch each; the adaptive executor with
+     ``PhyConfig(chan_est=LMS)`` against the CPU; then K5 (the LMS/STA
+     kernel, ``ops/track_eq.py``) with STA at the ITS-G5 cell's shapes
+     (its largest and its longest stage-B bucket, 512 x 135 and 128 x
+     269, and stage A's 8 192 x 1): one launch each, against the plain
+     loop on the same inputs, timed beside it, its bound and chain floor;
  16. times the resident front-end correction pass (CUDA events) for
      decim2, ppm40 and general 3/4 at 2**22 padded outputs, left pad 256
      (the JAX bench's shape), in input Msamples/s;
@@ -268,7 +273,9 @@ kernel's ``radio_launches`` are those of phases 18 and 19, its
 ``multichip_launches`` rank 0's of each leg of phase 32,
 ``waterfall_launches`` phase 34's, ``soak_launches`` phase 35's,
 ``graph_launches`` the replayed runs' of phase 36 and
-``serving_graph_launches`` the graph runs' of phase 37).
+``serving_graph_launches`` the graph runs' of phase 37; K5's row is
+phase 15's largest ITS-G5 bucket, and its ``multichip_launches`` are
+null: ``multichip_torch.py`` counts only the other kernels).
 
 ``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
 phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
@@ -283,8 +290,13 @@ trainer of 30, on every rank of phase 32, each leg's checked run, the
 card's decodes of 34, the soak of 35, each run of 36 and each graph
 run of 37) and read just after; launches made to compare or
 time a kernel do not count. The training path, the controller and the zoo
-run none of the four kernels (their convolutions are cuDNN's, their
-products cuBLAS's), so their counts must stay 0.
+run none of the kernels (their convolutions are cuDNN's, their
+products cuBLAS's), so their counts must stay 0. K5 launches only where a
+path tracks (LMS or STA): once an ``equalize`` call, so once a tracked
+waterfall decode (as many as the CPU path's tracking loops), once a step
+(stage A) and once a stage-B bucket of a tracking adaptive executor, and
+in the loopback radio's groups after its switch to STA; never on an LS
+path.
 A fixed-plan executor step launches the fused detector once and the
 segmented Viterbi kernel once, and dense K1 not at all; an adaptive step
 launches the fused detector once and the one-segment Viterbi kernel once
@@ -772,12 +784,17 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
     ltf1, ltf2, spectra = rx.frame_spectra(y, plan.n_sym, 0)
     h0 = equalizer.ls_estimate(ltf1, ltf2)
     eq_err = 0.0
+    eq_launches = {}
     for algo in (ChannelEstimator.LMS, ChannelEstimator.COMB, ChannelEstimator.STA):
-        for g, c in zip(equalizer.equalize(spectra, h0, 0, algo, 7),
-                        equalizer.equalize(spectra.cpu(), h0.cpu(), 0, algo, 7)):
+        reset()
+        got = equalizer.equalize(spectra, h0, 0, algo, 7)
+        eq_launches[algo.name] = counts()["track_eq"]
+        for g, c in zip(got, equalizer.equalize(spectra.cpu(), h0.cpu(), 0, algo, 7)):
             e = max_err(g.cpu(), c)
             check(e <= 1e-4, f"equalize {algo.name} on the card: {e:.3g} from the CPU (1e-4)")
             eq_err = max(eq_err, e)
+    check(eq_launches == {"LMS": 1, "COMB": 0, "STA": 1},
+          f"equalize on the card: K5 launches {eq_launches} (LMS and STA one each, COMB none)")
     errs = {a.name: int((rx.decode_aligned(y, plan, algo=a).psdu.cpu().numpy() != frame).sum())
             for a in (ChannelEstimator.LS, ChannelEstimator.LMS)}
     check(errs["LMS"] == 0 and errs["LS"] > 50,
@@ -787,9 +804,105 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
                  AdaptiveStreamExecutor(device="cpu", **lcfg).run(small),
                  "adaptive small mixed, LMS")
     print(f"trackers on the card: equalize LMS/COMB/STA within {eq_err:.3g} of the CPU "
-          f"(1e-4); echo frame byte errors {json.dumps(errs)}; adaptive LMS records equal "
-          f"the CPU path's")
+          f"(1e-4), K5 launches {json.dumps(eq_launches)}; echo frame byte errors "
+          f"{json.dumps(errs)}; adaptive LMS records equal the CPU path's")
     return fps, main, held, streams
+
+
+# K5 at the ITS-G5 cell's shapes (phase 15): STA from SIGNAL over its
+# largest stage-B bucket (6 Mb/s, 800 bytes: 512 padded rows of 1 + 134
+# symbols, QPSK decisions) and its longest (3 Mb/s, 800 bytes: 128 of 1 +
+# 268, BPSK), and stage A's SIGNAL symbol of 8 192 candidates (one
+# symbol, the unit-modulus proxy); noise 0.05 an axis on unit-energy
+# points (23 dB) and an estimate 10 % off
+TRACK_SHAPES = ((512, 135, 2), (128, 269, 0), (8192, 1, None))
+TRACK_SIGMA = 0.05
+# where a decision lies within a float32 rounding of a tie, K5 and the
+# loop (another rounding of the same recursion) may decide it apart, and
+# that carrier's estimate and its neighbours' then part for the rest of
+# the frame: at least this share of the equalized symbols must lie within
+# 1e-4 of the loop's (99.94 % or more on such inputs on an H100)
+TRACK_AGREE_MIN = 0.99
+TRACK_TIMED = 20
+
+
+def track_kernel_phase(dev, card: str, reset, counts) -> dict:
+    """Phase 15, K5 (``ops/track_eq.py``) at the ITS-G5 cell's shapes: each
+    ``equalize`` call with STA on the card launches K5 once (counts set to
+    0 just before, read just after) and no other kernel of ours, and holds
+    to the plain loop (``equalizer._track_plain``, run on the card over the
+    same inputs): decisions and equalized symbols agree on at least
+    TRACK_AGREE_MIN of the symbols, and within 1e-4 on every frame whose
+    decisions all agree. Times the call (CUDA events), the kernel's device
+    time (a profiled call) and the loop, beside ``track_bound`` and the
+    design's chain floor. Returns the kernels line's K5 fields."""
+    import torch
+
+    from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator, PhyConfig
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import track_eq as k5
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, mapping, params
+
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    pol_all = torch.from_numpy(params.POLARITY.astype(np.float32)).to(dev)
+    used = torch.from_numpy(params.USED_BINS.astype(np.int64)).to(dev)
+    gains = PhyConfig()
+    out = {}
+    for rows, symbols, mcs in TRACK_SHAPES:
+        rng = np.random.default_rng(rows * 1000 + symbols)
+        pts = params.constellation(1 if mcs is None else int(params.MCS_N_BPSC[mcs]))
+        shape = (rows, symbols, 64)
+        y = pts[rng.integers(0, pts.size, shape)] * np.exp(0.3j) + TRACK_SIGMA * (
+            rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+        h0 = np.exp(0.3j) * (1 + 0.1 * rng.standard_normal((rows, 52)))
+        y = torch.from_numpy(y.astype(np.complex64)).to(dev)
+        h0 = torch.from_numpy(h0.astype(np.complex64)).to(dev)
+        pol = pol_all[torch.arange(symbols, device=dev) % 127]
+
+        def kernel():
+            return equalizer.equalize(y, h0, 0, ChannelEstimator.STA, mcs)
+
+        def loop():
+            return equalizer._track_plain(y[..., used], h0, pol,
+                                          ChannelEstimator.STA, mcs, True, gains.lms_mu,
+                                          gains.sta_alpha, gains.sta_beta)
+
+        reset()
+        got = kernel()
+        launches = counts()
+        check(launches["track_eq"] == 1 and all(v == 0 for k, v in launches.items()
+                                                 if k != "track_eq"),
+              f"K5 at {rows} x {symbols}: launches {launches} (one K5 launch, nothing else)")
+        want = loop()
+        torch.cuda.synchronize()
+        close = (got[0] - want[0]).abs() <= 1e-4
+        dec = 0 if mcs is None else mcs           # the proxy's inputs are BPSK points
+        same = mapping.decide(got[0], dec) == mapping.decide(want[0], dec)
+        whole = same.flatten(1).all(1)
+        err = max(float((got[0] - want[0]).abs()[whole].max()) if whole.any() else 0.0,
+                  float((got[1] - want[1]).abs()[whole].max()) if whole.any() else 0.0)
+        agree, within = float(same.float().mean()), float(close.float().mean())
+        check(agree >= TRACK_AGREE_MIN and within >= TRACK_AGREE_MIN and err <= 1e-4,
+              f"K5 at {rows} x {symbols}: decisions {agree:.5f} and symbols within 1e-4 "
+              f"{within:.5f} of the loop's ({TRACK_AGREE_MIN}), {err:.3g} on the frames whose "
+              f"decisions all agree (1e-4)")
+        ms = cuda_ms(kernel, TRACK_TIMED)
+        own = device_profile(kernel)[2]
+        dev_ms = sum(t for name, v in own.items() if "track_eq_kernel" in name for t in v)
+        plain = cuda_ms(loop, 2)
+        bound = k5.track_bound(rows, rows * symbols)
+        floor = k5.chain_floor_ms(symbols, sm_mhz)
+        out[(rows, symbols)] = {"launches": launches["track_eq"], "err": err, "ms": ms,
+                                "plain_ms": plain, "bound": bound}
+        print(f"K5 (track_eq) STA at {rows} x {symbols} ({'proxy' if mcs is None else f'MCS {mcs}'}"
+              f"): launches {json.dumps(launches)}; decisions {agree:.5f}, symbols within 1e-4 "
+              f"{within:.5f} of the loop's, {int(whole.sum())}/{rows} frames with every decision "
+              f"equal ({err:.3g} on them); equalize {ms:.4f} ms, the kernel's device time "
+              f"{dev_ms:.4f} ms, the loop {plain:.3f} ms; bound {bound_str(bound)}, chain floor "
+              f"of the design {symbols} x {k5.K5_CYCLES_PER_STEP} cycles at {sm_mhz:.0f} MHz "
+              f"{floor:.4f} ms (CUDA events; {card})")
+    return out[TRACK_SHAPES[0][:2]]
 
 
 class _AppSide:
@@ -1032,6 +1145,7 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
                                       spacing["radio-loopback"])
     merge_held(held, out)
     check_launches("radio-loopback", launches, ("sync_detect", "viterbi_decode_many"))
+    check(launches["track_eq"] == 0, f"radio-loopback (LS): K5 launched {launches['track_eq']}")
     batches = len(passes.seconds)
     print(f"radio-loopback: LoopbackRadio(mcs {radio.mcs}, snr {radio.snr_db} dB, batch "
           f"{radio.batch}), source {type(radio.source).__name__}, sink "
@@ -1068,7 +1182,9 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
                                       pieces[:half], spacing["radio-loopback"],
                                       then=second_part)
     merge_held(held, out)
-    check_launches("radio-loopback retune", launches, ("sync_detect", "viterbi_decode_many"))
+    # the groups after the switch to STA track: K5 once a group
+    check_launches("radio-loopback retune", launches,
+                   ("sync_detect", "viterbi_decode_many", "track_eq"))
     check(retune.constellation.points().shape[0] > 0 and retune.spectrum.psd_db().max() > -200
           and np.isfinite(retune.snr_probe.snr_db()), "radio-loopback retune: probes not filled")
     print(f"radio-loopback retune: MCS 2 -> 5, SNR 25 -> 30 dB, epsilon 0 -> 2e-6, LS -> STA "
@@ -1096,6 +1212,7 @@ def radio_phases(dev, card: str, reset, counts, held: dict, shape=RADIO_IMAGE,
     merge_held(held, out)
     check_launches("radio-split", launches,
                    ("sync_detect", "viterbi_decode", "viterbi_decode_many"))
+    check(launches["track_eq"] == 0, f"radio-split (LS): K5 launched {launches['track_eq']}")
     check(rxr.constellation.points().shape[0] > 0 and rxr.spectrum.psd_db().max() > -200
           and np.isfinite(rxr.snr_probe.snr_db()), "radio-split: probes not filled")
     chunks = len(passes.seconds)
@@ -2381,7 +2498,7 @@ def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
 
     from gnuradio_wifi_imagetransfer_tpu_torch.config import ChannelEstimator
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
-    from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, tx
+    from gnuradio_wifi_imagetransfer_tpu_torch.phy import equalizer, rx, tx
 
     def transmit(psdu, mcs, seeds):
         return tx.transmit(psdu, mcs, scrambler_seed=torch.as_tensor(seeds),
@@ -2401,14 +2518,27 @@ def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
         card_tables = waterfall_tables(inputs, on(dev))
         t_card = time.perf_counter() - t0
         launches = counts()
-    t0 = time.perf_counter()
-    cpu_tables = waterfall_tables(inputs, on("cpu"))
-    t_cpu = time.perf_counter() - t0
+    loops = []                 # the CPU path's tracking loops: K5's calls on the card
+    plain_loop = equalizer._track_plain
+
+    def counted(*a, **kw):
+        loops.append(1)
+        return plain_loop(*a, **kw)
+
+    equalizer._track_plain = counted
+    try:
+        t0 = time.perf_counter()
+        cpu_tables = waterfall_tables(inputs, on("cpu"))
+        t_cpu = time.perf_counter() - t0
+    finally:
+        equalizer._track_plain = plain_loop
     points = len(card_tables)
-    check(launches["viterbi_decode_many"] == points
-          and all(v == 0 for k, v in launches.items() if k != "viterbi_decode_many"),
+    check(launches["viterbi_decode_many"] == points and launches["track_eq"] == len(loops) > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("viterbi_decode_many", "track_eq")),
           f"waterfall: launches {launches} for {points} decodes (K2's viterbi_decode_many "
-          f"once a decode, no other kernel)")
+          f"once a decode, K5 once for each of the CPU path's {len(loops)} tracking loops "
+          f"(LMS, STA), no other kernel)")
     out = hold_recorded(calls, "waterfall")
     merge_held(held, out)
     timed = []                   # K2 at an AWGN decode's shapes and at a fading decode's
@@ -2579,10 +2709,16 @@ def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
             launches = counts()
             identical_records(got, want, f"{label}, {run} run through the graphs")
             expect = {"sync_detect": steps, "sync_stats": 0}
+            tracks = getattr(ex, "algo", ChannelEstimator(ex.phy.chan_est)) in (
+                ChannelEstimator.LMS, ChannelEstimator.STA)
             if buckets is None:
                 expect |= {"viterbi_decode_many": steps, "viterbi_decode": 0}
+                if not tracks:
+                    expect |= {"track_eq": 0}
             else:
-                expect |= {"viterbi_decode": steps, "viterbi_decode_many": buckets}
+                # a tracker's K5: once a step (stage A) and once a bucket
+                expect |= {"viterbi_decode": steps, "viterbi_decode_many": buckets,
+                           "track_eq": steps + buckets if tracks else 0}
             check(all(launches[k] == v for k, v in expect.items())
                   and all(len(calls[k]) == launches[k] for k in calls),
                   f"{label}, {run} run: launches {launches}, recorded "
@@ -2887,7 +3023,7 @@ def serving_graph_phase(dev, card: str, reset, counts) -> dict:
                                  ("retune", "retune: MCS 5, 30 dB, 2e-6, STA, probes", retuned)):
         label = f"serving graphs, recorded batches, {name}"
         n_before = gcache.captured
-        want, want_pay, _, _ = through(re_, EagerGraphs(), setting, 37)
+        want, want_pay, eager_launches, _ = through(re_, EagerGraphs(), setting, 37)
         for pass_ in ("first", "replay"):
             spy, pay, launches, calls = through(rg, gcache, setting, 37)
             check(len(spy.outs) == len(want.outs)
@@ -2896,6 +3032,11 @@ def serving_graph_phase(dev, card: str, reset, counts) -> dict:
                   f"{label}, {pass_} pass: the group outputs or payloads differ from the eager "
                   f"radio's")
             check_groups(f"{label}, {pass_} pass", launches, len(spy.keys))
+            # STA's groups launch K5 as the eager radio's do; LS's never
+            check(launches["track_eq"] == eager_launches["track_eq"]
+                  and (launches["track_eq"] > 0) == (short == "retune"),
+                  f"{label}, {pass_} pass: K5 launched {launches['track_eq']}, the eager radio "
+                  f"{eager_launches['track_eq']}")
         merge_held(held, hold_recorded(calls, f"{label} (replayed)"))
         out_launches[f"radio-loopback {short}"] = launches
         new = list(gcache.stats)[n_before:]
@@ -3192,6 +3333,7 @@ def main() -> None:
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import build
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir as k34
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+    from gnuradio_wifi_imagetransfer_tpu_torch.ops import track_eq as k5
     from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
     from gnuradio_wifi_imagetransfer_tpu_torch.parallel import StreamExecutor
     from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import (
@@ -3203,7 +3345,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     kernels = [k1.sync_stats, k1.sync_detect, k2.viterbi_decode, k2.viterbi_decode_many,
-               k34.fir_filter, k34.polyphase_resample]
+               k34.fir_filter, k34.polyphase_resample, k5.track_eq]
     phy = PhyConfig()
     thr, mp = phy.sync_threshold, phy.min_plateau
 
@@ -3580,6 +3722,7 @@ def main() -> None:
     del ex_ppm
 
     fps, amain, held, astreams = adaptive_phases(dev, card, reset, counts)
+    k5_main = track_kernel_phase(dev, card, reset, counts)
 
     # -- 16. front-end pass rates ----------------------------------------
     frng = np.random.default_rng(5)
@@ -3786,10 +3929,14 @@ def main() -> None:
              k3_err, k3_ms, k3_plain, k3_bound, k3_lib),
             ("polyphase_resample", "fir.cu", "pallas_fir.py:179",
              gen_launches["polyphase_resample"], held_err("polyphase_resample", k4_err), k4_ms,
-             k4_plain, k4_bound, k4_lib)):
+             k4_plain, k4_bound, k4_lib),
+            # K5 replaces no TPU kernel (the JAX package's trackers are a
+            # lax.scan); its row is phase 15's largest ITS-G5 bucket
+            ("track_eq", "track_eq.cu", None, k5_main["launches"], k5_main["err"],
+             k5_main["ms"], k5_main["plain_ms"], k5_main["bound"], None)):
         by = max(bound, key=bound.get)
         out.append({"name": name, "route": "cuda", "source": f"{pkg_src}/{src}",
-                    "replaces": f"{jax_ops}/{replaces}", "launches": launches,
+                    "replaces": replaces and f"{jax_ops}/{replaces}", "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[by],
                     "bound_by": by, "library_ms": lib,
                     "radio_launches": {k: v[name] for k, v in radio_launches.items()},
@@ -3797,7 +3944,8 @@ def main() -> None:
                     "sv_launches": sv_launches[name], "train_launches": train_launches[name],
                     "dqn_launches": dqn_launches[name], "zoo_launches": zoo_launches[name],
                     "mesh_launches": {k: v[name] for k, v in mesh_launches.items()},
-                    "multichip_launches": {k: v[name] for k, v in multichip_launches.items()},
+                    "multichip_launches": {k: v.get(name)
+                                           for k, v in multichip_launches.items()},
                     "waterfall_launches": waterfall_launches[name],
                     "soak_launches": soak_launches[name],
                     "graph_launches": {k: v[name] for k, v in graph_launches.items()},

@@ -8,6 +8,9 @@ PyTorch version:
                  (replaces ops/pallas_viterbi.py)
     fir          causal FIR (K3) and polyphase resampler (K4) (replace
                  ops/pallas_fir.py)
+    track_eq     the LMS/STA tracking equalizer (K5): a batch of frames'
+                 whole recursion a launch (replaces no TPU kernel; the
+                 JAX package's lax.scan, phy/equalizer.py's loop on the CPU)
 
 The sources live in ``csrc/`` and are compiled with nvcc at first use
 (``ops/build.py``); nothing is compiled when a module is imported.

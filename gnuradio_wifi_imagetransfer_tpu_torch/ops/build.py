@@ -114,6 +114,10 @@ def library() -> ctypes.CDLL:
     lib.gwt_polyphase_resample.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64, i64, i64,
                                            i64, i64, i64, i32, i32, vp]
     lib.gwt_polyphase_resample.restype = i32
+    f32, pf32 = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
+    lib.gwt_track_eq.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, pf32, pf32,
+                                 f32, f32, f32, vp]
+    lib.gwt_track_eq.restype = i32
     lib.gwt_error_string.argtypes = [i32]
     lib.gwt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,7 @@
 """The kernels' bounds, the card timers and the shared harness of the port.
 
 The bounds live beside their kernels (``ops/sync_stats.py``,
-``ops/viterbi_acs.py``, ``ops/fir.py``) over the peaks of
+``ops/viterbi_acs.py``, ``ops/fir.py``, ``ops/track_eq.py``) over the peaks of
 ``ops/roofline.py`` and read only the shapes of the work, so any reader
 (the smoke run, a benchmark) reckons the same bound for the same shapes.
 Here they reproduce PERF.md's kernel table at its shapes, with K1's and
@@ -20,6 +20,7 @@ import torch
 
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir, holds, roofline
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import sync_stats as k1
+from gnuradio_wifi_imagetransfer_tpu_torch.ops import track_eq as k5
 from gnuradio_wifi_imagetransfer_tpu_torch.ops import viterbi_acs as k2
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
 
@@ -58,6 +59,10 @@ CASES = {
         lambda: k2.viterbi_bound(256 * (422 + 24)), "operations", 0.00113, 5),
     "viterbi_decode operations on stage A's 512 x 24": (
         lambda: k2.viterbi_bound(512 * 24), "operations", 0.00012, 5),
+    "track_eq bytes at the ITS-G5 cell's largest bucket, 512 x 135": (
+        lambda: k5.track_bound(512, 512 * 135), "bytes", 0.0205, 4),
+    "track_eq operations at the instruction rate, 512 x 135": (
+        lambda: k5.track_bound(512, 512 * 135), "operations", 0.0084, 4),
 }
 
 
@@ -72,6 +77,11 @@ def test_bound_reproduces_the_kernel_table(case):
                                              (2374, 0.252, 3), (4798, 0.509, 3)])
 def test_chain_floor_at_1980_mhz(steps, ms, places):
     assert round(k2.chain_floor_ms(steps, 1980.0), places) == ms
+
+
+@pytest.mark.parametrize("symbols,ms", [(135, 0.022), (269, 0.044)])
+def test_k5_chain_floor_at_1980_mhz(symbols, ms):
+    assert round(k5.chain_floor_ms(symbols, 1980.0), 3) == ms
 
 
 def test_the_instruction_rate_is_half_the_fma_rate():

@@ -159,7 +159,9 @@ def test_the_pallas_files_map_to_the_kernel_modules():
         for name in _public(JAX_PKG / module):
             assert f"{module}:{name}" in NAME_MAP, f"{module}:{name} has no counterpart"
     cu = {p.name for p in (PORT_PKG / "csrc").glob("*.cu")}
-    assert cu == {"sync_stats.cu", "viterbi_acs.cu", "fir.cu"}
+    # the three sources of the Pallas kernels' ports, and K5 (track_eq.cu),
+    # which replaces none: the JAX package runs its trackers as a lax.scan
+    assert cu == {"sync_stats.cu", "viterbi_acs.cu", "fir.cu", "track_eq.cu"}
 
 
 def test_every_root_script_has_its_twin():
