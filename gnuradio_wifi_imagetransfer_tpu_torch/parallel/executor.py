@@ -676,15 +676,39 @@ _SIG_WLEN = sync.window_len(0)
 
 
 @dataclasses.dataclass
-class _Candidate:
-    """A detected frame awaiting stage-B payload decode."""
+class _Candidates:
+    """Detected frames awaiting stage-B payload decode, one equal-length
+    numpy column a field. Indexing by a slice, a mask or positions gives
+    the same columns' rows."""
 
-    channel: int
-    global_start: int
-    cfo: float
-    frame_start: int      # preamble offset within a window cut at gstart - MARGIN
-    rate_idx: int
-    length: int
+    channel: np.ndarray
+    global_start: np.ndarray
+    cfo: np.ndarray           # float32, as stage A computed it
+    frame_start: np.ndarray   # preamble offset within a window cut at gstart - MARGIN
+    rate_idx: np.ndarray
+    length: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.channel)
+
+    def __getitem__(self, idx) -> "_Candidates":
+        return _Candidates(*(getattr(self, f.name)[idx] for f in dataclasses.fields(self)))
+
+    def buckets(self) -> "list[_Candidates]":
+        """The candidates grouped by decoded (rate_idx, length): buckets in
+        order of first appearance, positions ascending in each, as
+        ``rx.signal_buckets`` groups them. Steerable rows only
+        (rate_idx >= 0, 1 <= length < 2**32)."""
+        if not len(self):
+            return []
+        key = self.rate_idx.astype(np.int64) << 32 | self.length.astype(np.int64)
+        _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+        rank = np.empty_like(first)
+        rank[np.argsort(first)] = np.arange(len(first))
+        bucket_of = rank[inverse.reshape(-1)]
+        ordered = self[np.argsort(bucket_of, kind="stable")]
+        edges = np.cumsum(np.bincount(bucket_of)).tolist()
+        return [ordered[lo:hi] for lo, hi in zip([0] + edges[:-1], edges)]
 
 
 class AdaptiveStreamExecutor(_StreamExecutorBase):
@@ -761,10 +785,14 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
         )
 
     def _collect_candidates(self, offset: int, outs: StageAOutputs, n: int, samples: int,
-                            seen: set[tuple[int, int]]) -> list[_Candidate]:
+                            seen: set[int]) -> _Candidates:
+        """The step's steerable candidates not yet in ``seen`` (the run's
+        keys ``channel * n + global_start``, updated here), deduped by that
+        key, in row-major (channel, block, slot) order of their first
+        row. Counter ``candidates``: frames kept, samples the steerable
+        rows read, duplicates included."""
         with self.tracer.stage("device_step", samples=samples):
             h = self._fetch_global(outs)    # the fetch waits for the step to land
-        cands: list[_Candidate] = []
         with self.tracer.stage("collect"):
             starts = h.starts.numpy().astype(np.int64)
             cfo, frame_start = h.cfo.numpy(), h.frame_start.numpy()
@@ -778,24 +806,26 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
                 # (rate, length) and take the dedup key before the
                 # overlapped stride supplies the true candidate
                 mask &= ~self._untrusted(gstart, _SIG_WLEN, offset, n)
-            for ci, ti, ki in np.argwhere(mask):
-                key = (int(ci), int(gstart[ci, ti, ki]))
-                if key in seen:
-                    continue
-                seen.add(key)
-                cands.append(_Candidate(
-                    channel=key[0],
-                    global_start=key[1],
-                    cfo=float(cfo[ci, ti, ki]),
-                    frame_start=int(frame_start[ci, ti, ki]),
-                    rate_idx=int(rate_idx[ci, ti, ki]),
-                    length=int(length[ci, ti, ki]),
-                ))
+            rows = np.nonzero(mask)                     # row-major, as np.argwhere
+            ci = rows[0].astype(np.int64)
+            # a detected edge lies in its block's owned region, so
+            # 0 <= global_start < n and the key is one per (channel, start)
+            keys = ci * n + gstart[rows]
+            _, first = np.unique(keys, return_index=True)
+            first.sort()
+            if seen:
+                first = first[np.array([k not in seen for k in keys[first].tolist()], bool)]
+            seen.update(keys[first].tolist())
+            rows = tuple(r[first] for r in rows)
+            cands = _Candidates(channel=ci[first], global_start=gstart[rows], cfo=cfo[rows],
+                                frame_start=frame_start[rows], rate_idx=rate_idx[rows],
+                                length=length[rows])
+        self.tracer.count("candidates", frames=len(cands), samples=len(keys))
         return cands
 
     # -- stage B -------------------------------------------------------
 
-    def _bucket_inputs(self, stream: np.ndarray, bucket: list[_Candidate], wlen: int):
+    def _bucket_inputs(self, stream: np.ndarray, bucket: _Candidates, wlen: int):
         """A bucket's decode inputs on the device, padded to the next power
         of two rows as the JAX package pads them (its executor.py:991-1010):
         (b_pad, cut_len, 2) wire windows whose origin is stage A's (edge -
@@ -811,28 +841,28 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
         pinned block is not reused before its copy completes); mesh mode
         cuts them from the host stream (zeros outside it) and ships them in
         the wire format, input-rate windows with a front-end."""
-        dev, fe = self.device, self.frontend
-        b_pad = 1 << (len(bucket) - 1).bit_length()
+        dev, fe, b = self.device, self.frontend, len(bucket)
+        b_pad = 1 << (b - 1).bit_length()
         host = torch.zeros((b_pad, 3), dtype=torch.float64,
                            pin_memory=self.mesh is None and dev.type == "cuda")
         rows = host.numpy()
+        rows[:b, 0] = bucket.frame_start
+        rows[:b, 1] = bucket.cfo
         if self.mesh is None:
             n_pad = self._dev_stream.shape[1]
-            for i, c in enumerate(bucket):
-                rows[i] = c.frame_start, c.cfo, c.channel * n_pad + c.global_start - sync.MARGIN \
-                    + HALO_LEFT
+            rows[:b, 2] = bucket.channel * n_pad + bucket.global_start - sync.MARGIN + HALO_LEFT
             scalars = host.to(dev, non_blocking=True)
             idx = scalars[:, 2].to(torch.int64)[:, None] + torch.arange(wlen, device=dev)
             return self._dev_stream.view(-1, 2)[idx], scalars
         cut_len = wlen if fe is None else fe.block_ext_in(wlen)
         raw = np.zeros((b_pad, cut_len), np.complex64)
-        for i, c in enumerate(bucket):
-            o = c.global_start - sync.MARGIN
+        for i, (ch, gs) in enumerate(zip(bucket.channel.tolist(), bucket.global_start.tolist())):
+            o = gs - sync.MARGIN
             cut, tau = (o, 0.0) if fe is None else fe.block_cut(o, wlen)
             lo, hi = max(cut, 0), min(cut + cut_len, stream.shape[1])
             if hi > lo:
-                raw[i, lo - cut: hi - cut] = stream[c.channel, lo:hi]
-            rows[i] = c.frame_start, c.cfo, np.float32(tau)
+                raw[i, lo - cut: hi - cut] = stream[ch, lo:hi]
+            rows[i, 2] = np.float32(tau)
         wire = torch.from_numpy(quantize_wire(to_riq(raw), self.cfg.wire_format)).to(dev)
         return wire, host.to(dev)
 
@@ -855,13 +885,13 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
             parts.append(torch.view_as_real(r.eq_symbols).reshape(raw.shape[0], -1))
         return torch.cat(parts, dim=-1)
 
-    def _dispatch_bucket(self, stream: np.ndarray, bucket: list[_Candidate]):
+    def _dispatch_bucket(self, stream: np.ndarray, bucket: _Candidates):
         """Queue one (MCS, length) bucket's decode on the device; returns
         (bucket, plan, packed rows) with the bucket's own rows (the padded
         ones dropped), fetched later by ``_drain``. Local mode on a CUDA
         device replays the bucket's CUDA graph (one a key: the plan, the
         tracker and its gains, the symbols' capture and the padded rows)."""
-        plan = TxPlan(bucket[0].rate_idx, bucket[0].length)
+        plan = TxPlan(int(bucket.rate_idx[0]), int(bucket.length[0]))
         fn = functools.partial(self.bucket_decode, plan)
         if self.algo in (ChannelEstimator.LMS, ChannelEstimator.STA):
             # the tracker's symbol-steps (K5 on a CUDA device)
@@ -877,33 +907,26 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
                 packed = fn(windows, scalars)
             return bucket, plan, packed[: len(bucket)]
 
-    def _finish_bucket(self, bucket: list[_Candidate], plan: TxPlan,
+    def _finish_bucket(self, bucket: _Candidates, plan: TxPlan,
                        packed: np.ndarray) -> list[FrameRecord]:
-        """Frame records of one fetched bucket."""
+        """Frame records of one fetched bucket, in the bucket's order; each
+        record's psdu is a writable row of the bucket's uint8 array."""
         ln = plan.psdu_len
         psdu = packed[:, :ln].astype(np.uint8)
-        parity, snr = packed[:, ln], packed[:, ln + 1]
-        symbols = None
+        symbols = [None] * len(bucket)
         if self.capture_symbols:
             symbols = np.ascontiguousarray(packed[:, ln + 2:]).view(np.complex64).reshape(
                 len(bucket), plan.n_sym, 48)
-        return [FrameRecord(
-            channel=cand.channel,
-            global_start=cand.global_start,
-            psdu=psdu[i],
-            parity_ok=bool(parity[i]),
-            rate_idx=cand.rate_idx,
-            length=ln,
-            cfo=cand.cfo,
-            snr_db=float(snr[i]),
-            eq_symbols=None if symbols is None else symbols[i],
-        ) for i, cand in enumerate(bucket)]
+        # FrameRecord's fields in order, positional: keywords cost a third more
+        return list(map(FrameRecord, bucket.channel.tolist(), bucket.global_start.tolist(), psdu,
+                        (packed[:, ln] != 0).tolist(), bucket.rate_idx.tolist(),
+                        [ln] * len(bucket), bucket.cfo.tolist(), packed[:, ln + 1].tolist(),
+                        symbols))
 
-    def _stage_b_dispatch(self, stream: np.ndarray, cands: list[_Candidate]) -> list:
-        buckets = rx.signal_buckets([c.rate_idx for c in cands], [c.length for c in cands])
+    def _stage_b_dispatch(self, stream: np.ndarray, cands: _Candidates) -> list:
+        buckets = cands.buckets()
         with self.tracer.stage("stage_b", frames=len(cands)):
-            return [self._dispatch_bucket(stream, [cands[i] for i in pos])
-                    for pos in buckets.values()]
+            return [self._dispatch_bucket(stream, bucket) for bucket in buckets]
 
     def _drain(self, pending: list, records: list[FrameRecord]) -> None:
         """Fetch every pending bucket in ONE device-to-host copy and append
@@ -929,7 +952,7 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
         stream = np.atleast_2d(np.ascontiguousarray(stream, dtype=np.complex64))
         n = self.effective_len(stream.shape[1])
         samples = stream.shape[0] * self.time_shards * self.block
-        seen: set[tuple[int, int]] = set()
+        seen: set[int] = set()
         pending: list = []
         records: list[FrameRecord] = []
         try:
@@ -941,4 +964,5 @@ class AdaptiveStreamExecutor(_StreamExecutorBase):
             self._drain(pending, records)
         finally:
             self._dev_stream = None        # release the resident device copy
-        return sorted(records, key=lambda r: (r.channel, r.global_start))
+        order = np.lexsort(([r.global_start for r in records], [r.channel for r in records]))
+        return [records[i] for i in order.tolist()]

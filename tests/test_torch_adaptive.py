@@ -28,7 +28,9 @@ from gnuradio_wifi_imagetransfer_tpu_torch.config import (
 from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
     AdaptiveReceiver,
     AdaptiveStreamExecutor,
+    make_mesh,
 )
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import HALO_LEFT, StageAOutputs
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, sync, tx
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
 
@@ -223,6 +225,22 @@ def test_tracer_stages_and_resident_pad():
     assert ex.halo_right == 560
 
 
+def test_candidates_counter_counts_the_kept_and_the_read_rows():
+    """The Tracer's ``candidates`` counter: one call a step, the frames
+    kept (every record of the run) and the steerable rows read, the
+    duplicates among them included."""
+    x = _mixed_stream(4 * 4096, _specs())[None]
+    tracer = tracing.Tracer()
+    ex = AdaptiveStreamExecutor(exec_cfg=ExecutorConfig(block_size=4096, time_shards=2,
+                                                        max_frames_per_block=4),
+                                tracer=tracer, device="cpu")
+    recs = ex.run(x)
+    counted = tracer.report()["candidates"]
+    assert counted.calls == 2                           # two steps of 2 x 4096
+    assert counted.frames == len(recs) == 4
+    assert counted.samples >= counted.frames
+
+
 def _receiver_stream(jobs, n, seed=0, noise=0.004, gap=9000, pos0=500):
     rng = np.random.default_rng(seed)
     x = np.zeros(n, np.complex64)
@@ -291,3 +309,137 @@ def test_signal_buckets_and_steerable_mask():
     assert ok.tolist() == [True, False, False, False, True, False, True]
     assert rx.signal_buckets([7, 3, 7, 0, 3], [50, 50, 50, 50, 60]) == {
         (7, 50): [0, 2], (3, 50): [1], (0, 50): [3], (3, 60): [4]}
+
+
+# -- the host's column path against the loop it replaced ------------------------
+
+C_SYN, T_SYN, K_SYN, BLK_SYN = 3, 4, 8, 1024
+
+
+def _synthetic_stage_a(seed, offset, n):
+    """(C, T, K) stage-A outputs with the cases the host sorts out: one
+    (channel, global_start) in two slots of a block and in the block before
+    it, SIGNALs that do not steer, starts at or past ``n``."""
+    rng = np.random.default_rng(seed)
+    shape = (C_SYN, T_SYN, K_SYN)
+    starts = rng.integers(0, BLK_SYN, shape)
+    valid = rng.random(shape) < 0.8
+    sig_ok = rng.random(shape) < 0.85
+    rate_idx = rng.choice([-1, 0, 3, 3, 7], shape)
+    length = rng.choice([0, 50, 50, 120, 801], shape)
+    dups = [(0, 1, 0), (0, 1, 3), (0, 0, 5), (2, 3, 1), (2, 2, 7)]
+    starts[0, 1, 3] = starts[0, 1, 0]
+    starts[0, 0, 5] = starts[0, 1, 0] + BLK_SYN          # block 0, past its own edge
+    starts[2, 2, 7] = starts[2, 3, 1] + BLK_SYN
+    for d in dups:
+        valid[d], sig_ok[d], rate_idx[d], length[d] = True, True, 3, 50
+    rate_idx[0, 0, 5] = 7                     # the first row of a key decides its bucket
+    valid[1, T_SYN - 1] = True
+    # the edges of channel 1's last block at and past n (local: n inside it)
+    starts[1, T_SYN - 1, :2] = n - offset - (T_SYN - 1) * BLK_SYN + np.array([0, 37])
+    return StageAOutputs(
+        valid=torch.from_numpy(valid), starts=torch.from_numpy(starts.astype(np.int32)),
+        cfo=torch.from_numpy(rng.normal(0, 1e-3, shape).astype(np.float32)),
+        frame_start=torch.from_numpy(rng.integers(100, 200, shape).astype(np.int32)),
+        rate_idx=torch.from_numpy(rate_idx.astype(np.int32)),
+        length=torch.from_numpy(length.astype(np.int32)), sig_ok=torch.from_numpy(sig_ok))
+
+
+def _plain_collect_and_bucket(ex, offset, h, n, seen):
+    """The per-row host loop the column path replaced: the mask, the
+    argwhere walk with a set of (channel, global_start), then
+    ``rx.signal_buckets``. Returns (rows read, candidates, buckets) with
+    each candidate (channel, global_start, cfo, frame_start, rate_idx,
+    length) as Python numbers."""
+    starts = h.starts.numpy().astype(np.int64)
+    cfo, frame_start = h.cfo.numpy(), h.frame_start.numpy()
+    rate_idx, length = h.rate_idx.numpy(), h.length.numpy()
+    gstart = offset + np.arange(starts.shape[1])[None, :, None] * ex.block + starts
+    mask = (h.valid.numpy() & (gstart < n)
+            & rx.steerable(h.sig_ok.numpy(), rate_idx, length, ex.phy.max_psdu_bytes))
+    if ex.mesh is not None:
+        mask &= ~ex._untrusted(gstart, sync.window_len(0), offset, n)
+    cands = []
+    for ci, ti, ki in np.argwhere(mask):
+        key = (int(ci), int(gstart[ci, ti, ki]))
+        if key in seen:
+            continue
+        seen.add(key)
+        cands.append((key[0], key[1], float(cfo[ci, ti, ki]), int(frame_start[ci, ti, ki]),
+                      int(rate_idx[ci, ti, ki]), int(length[ci, ti, ki])))
+    buckets = rx.signal_buckets([c[4] for c in cands], [c[5] for c in cands])
+    return int(mask.sum()), cands, [[cands[i] for i in pos] for pos in buckets.values()]
+
+
+def _plain_rows(bucket, n_pad):
+    """A bucket's (b_pad, 3) float64 scalars as the loop wrote them one row
+    at a time (local mode; mesh mode without a front-end: tau 0)."""
+    rows = np.zeros((1 << (len(bucket) - 1).bit_length(), 3))
+    for i, (ch, gs, cfo, fs, _, _) in enumerate(bucket):
+        rows[i] = (fs, cfo, ch * n_pad + gs - sync.MARGIN + HALO_LEFT) if n_pad else (
+            fs, cfo, np.float32(0.0))
+    return rows
+
+
+def _as_tuples(cands):
+    return list(zip(cands.channel.tolist(), cands.global_start.tolist(), cands.cfo.tolist(),
+                    cands.frame_start.tolist(), cands.rate_idx.tolist(),
+                    cands.length.tolist()))
+
+
+@pytest.mark.parametrize("mode", ["local", "mesh"])
+def test_column_path_matches_the_per_row_loop(monkeypatch, mode):
+    """Dedup, ``seen``, bucketing and the bucket scalars of the column
+    path are the per-row loop's: the same candidates and buckets in the
+    same order, the float64 rows byte for byte with the padding. Local:
+    edges at and past the stream's end; mesh: the ``_untrusted`` rows of
+    the edge blocks."""
+    offset = 3 * 4096
+    n = offset + (T_SYN - 1) * BLK_SYN + 300 if mode == "local" else offset + 9 * BLK_SYN
+    cfg = ExecutorConfig(block_size=BLK_SYN, time_shards=T_SYN, max_frames_per_block=K_SYN,
+                         channels=C_SYN, wire_format="sc16")
+    tracer = tracing.Tracer()
+    ex = AdaptiveStreamExecutor(mesh=None if mode == "local" else make_mesh(1, T_SYN),
+                                exec_cfg=cfg, tracer=tracer, device="cpu")
+    outs = _synthetic_stage_a(11, offset, n)
+    seen_rows = [(1, 0, 0), (2, 1, 4)]            # keys a previous step already took
+    for r in seen_rows:
+        outs.valid[r], outs.sig_ok[r], outs.rate_idx[r], outs.length[r] = True, True, 0, 120
+    seen_plain = {(r[0], offset + r[1] * BLK_SYN + int(outs.starts[r])) for r in seen_rows}
+    seen_plain.add((0, 7))
+    seen = {c * n + g for c, g in seen_plain}
+    read, want, want_buckets = _plain_collect_and_bucket(ex, offset, outs, n, seen_plain)
+
+    cands = ex._collect_candidates(offset, outs, n, 0, seen)
+    got = _as_tuples(cands)
+    assert got == want and len(want) > 20
+    assert seen == {c * n + g for c, g in seen_plain}
+    assert (0, offset + BLK_SYN + int(outs.starts[0, 1, 0])) in {w[:2] for w in want}
+    counted = tracer.report()["candidates"]
+    assert (counted.calls, counted.frames, counted.samples) == (1, len(want), read)
+    assert read > len(want)                               # duplicates and seen keys read
+    if mode == "local":
+        assert not any(g >= n for _, g, *_ in want)
+    else:
+        assert ex._untrusted(offset + np.arange(T_SYN)[None, :, None] * BLK_SYN
+                             + outs.starts.numpy(), sync.window_len(0), offset, n).any()
+    assert _as_tuples(cands[: len(cands) // 2]) == want[: len(want) // 2]   # the half control
+
+    stream = np.zeros((C_SYN, n), np.complex64)
+    n_pad = 0
+    if mode == "local":
+        n_pad = ex.padded_out_len(n)
+        ex._dev_stream = torch.zeros((C_SYN, n_pad, 2), dtype=torch.int16)
+    dispatched = []
+
+    def spy(self, stream, bucket):
+        wlen = sync.window_len(tx.tx_plan(int(bucket.rate_idx[0]), int(bucket.length[0])).n_sym)
+        dispatched.append((bucket, self._bucket_inputs(stream, bucket, wlen)[1]))
+        return bucket, None, None
+
+    monkeypatch.setattr(AdaptiveStreamExecutor, "_dispatch_bucket", spy)
+    ex._stage_b_dispatch(stream, cands)
+    assert [_as_tuples(b) for b, _ in dispatched] == want_buckets and len(want_buckets) > 2
+    for (_, scalars), bucket in zip(dispatched, want_buckets):
+        assert scalars.dtype == torch.float64
+        assert scalars.numpy().tobytes() == _plain_rows(bucket, n_pad).tobytes()

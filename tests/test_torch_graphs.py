@@ -218,7 +218,10 @@ def _captured(kind):
     if kind == "stage_a":
         return ex.span_step, (ex.span(0),)
     plan = tx.tx_plan(2, 50)
-    cands = [pexec._Candidate(0, 500 + 1000 * i, 0.0, 160, 2, 50) for i in range(3)]
+    cands = pexec._Candidates(channel=np.zeros(3, np.int64),
+                              global_start=500 + 1000 * np.arange(3, dtype=np.int64),
+                              cfo=np.zeros(3, np.float32), frame_start=np.full(3, 160),
+                              rate_idx=np.full(3, 2), length=np.full(3, 50))
     windows, scalars = ex._bucket_inputs(stream, cands, sync.window_len(plan.n_sym))
     return (lambda w, s: ex.bucket_decode(plan, w, s)), (windows, scalars)
 
