@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (one NVIDIA GPU).
 
-    python3 chip_smoke.py [--parent <checkout root>]
-    python3 chip_smoke.py --fir-times <checkout root>
+    python3 chip_smoke.py
 
 Drives the port's main paths through the entry points a user calls and
 holds each hand-written kernel against its plain PyTorch version:
@@ -100,8 +99,7 @@ holds each hand-written kernel against its plain PyTorch version:
      (the ``viterbi_decode`` row) and a stage-B bucket's K2 at the
      adaptive path's shapes, K3 and K4 with their share of bound and
      their conv1d yardsticks, K3 with its taps given as numpy and as a
-     CUDA tensor (with ``--parent``, also the other checkout's K3 and K4
-     in turns with this tree's, each in a process of its own);
+     CUDA tensor;
  18. the radios on the Mode-2 traffic: one 300 x 300 x 3 image
      (``AppConfig.image_size``) cut by ``utils.image.detach_image`` into
      2 700 pieces, one 266-268-byte datagram each. ``LoopbackRadio`` at
@@ -214,11 +212,6 @@ holds each hand-written kernel against its plain PyTorch version:
      bit-exact and equal to the local executors', the trainer within the
      SMALL_* tolerances of the one-rank Trainer with equal replicas, rank
      0's first K1 and K2 calls held; a rank that fails fails the phase;
- 33. ``bench_torch.py`` in a process of its own with a 180 s budget over
-     its phases device_small, device, pipeline, adaptive:2, adaptive:mix
-     and frontend: exit code 0 (each phase checks its frames bit-exact and,
-     on the card, that K1 and K2 launched), a value above 0 and every one
-     of those phases in its result line, which is printed;
  34. the PER waterfall of tests/test_waterfall.py: ``rx.decode_aligned``
      on the card over AWGN (MCS 0-7, 16 frames of 100 bytes, the test's
      SNRs and one point in each MCS's falling edge) and over its 3-tap
@@ -245,8 +238,7 @@ holds each hand-written kernel against its plain PyTorch version:
      and stage-B host ms a bucket in turns; the graphs, their keys and
      ``memory_reserved``; LMS stage B of an 800-byte MCS-0 frame (268
      symbols unrolled into one graph): capture ms and the device
-     activities of one bare replay; with ``--parent``, ``tools/step_ab.py``
-     over both checkouts in turns;
+     activities of one bare replay;
  37. the serving programs' CUDA graphs (a LoopbackRadio group, a TxRadio
      group, the codec's encode and decode) against the same objects run
      eagerly (``EagerGraphs`` on their ``graphs``), in turns (eager,
@@ -276,11 +268,6 @@ kernel's ``radio_launches`` are those of phases 18 and 19, its
 ``serving_graph_launches`` the graph runs' of phase 37; K5's row is
 phase 15's largest ITS-G5 bucket, and its ``multichip_launches`` are
 null: ``multichip_torch.py`` counts only the other kernels).
-
-``--fir-times <checkout root>`` only times that checkout's K3 and K4 at
-phase 17's shapes (three rounds of 20 calls, CUDA events) and prints one
-JSON line; two checkouts are compared by running it in turns (A, B, B,
-A). It builds the kernels into that checkout's own build directory.
 
 Launch counts are set to 0 just before each main-path run (7 to 13, each
 radio run of 18-19, the first run of each app phase, 20-21, the SV fading
@@ -481,9 +468,6 @@ ZOO_RTOL, ZOO_RTOL_DEEP, MAE_LOSS_RTOL = 1e-4, 5e-4, 1e-5
 SCRIPT_TUNE_FRAMES, SCRIPT_TIMEOUT = 4, 300
 # phase 32: multichip_torch.py's limit a world, in seconds
 MULTICHIP_TIMEOUT = 600
-# phase 33: bench_torch.py's phases and its budget in seconds
-BENCH_PHASES = ("device_small", "device", "pipeline", "adaptive:2", "adaptive:mix", "frontend")
-BENCH_BUDGET_S = 180
 
 
 def fail(msg: str) -> None:
@@ -494,60 +478,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def fir_times(root: str) -> None:
-    """Times the K3 and K4 of the port under root: fir_filter on (4, 4 194
-    304) complex64 with 65 taps (numpy, then a CUDA tensor), and
-    polyphase_resample at 3/4 on (4, 5 595 478) complex64 (the general
-    front-end's input of phase 10) with design_lowpass(3, 4); three rounds
-    of 20 calls each. Prints one JSON line."""
-    import scipy.signal
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    # this script loaded its own checkout's package (the timers it keeps);
-    # the kernels timed are root's
-    for name in [m for m in sys.modules if m == PKG or m.startswith(PKG + ".")]:
-        del sys.modules[name]
-    sys.path.insert(0, root)
-    try:
-        from gnuradio_wifi_imagetransfer_tpu_torch import ops
-        from gnuradio_wifi_imagetransfer_tpu_torch.ops import fir
-    except ImportError as e:
-        fail(f"the port package {PKG} is not under {root} ({e})")
-    check(os.path.abspath(fir.__file__).startswith(os.path.join(root, PKG)),
-          f"{PKG} was imported from {fir.__file__}, not from {root}")
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-
-    def cplx(shape):
-        v = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-        return torch.from_numpy(v.astype(np.complex64)).to(dev)
-
-    x3, h3 = cplx((CHANNELS, 1 << 22)), scipy.signal.firwin(FIR_TAPS, 0.5).astype(np.float32)
-    h3_dev = torch.from_numpy(h3).to(dev)
-    x4, h4 = cplx((CHANNELS, 5_595_478)), ops.design_lowpass(3, 4)
-    out = {"root": root, "fir_ms": [], "fir_device_taps_ms": [], "resample_ms": []}
-    for _ in range(3):
-        out["fir_ms"].append(cuda_ms(lambda: fir.fir_filter(x3, h3), 20))
-        out["fir_device_taps_ms"].append(cuda_ms(lambda: fir.fir_filter(x3, h3_dev), 20))
-        out["resample_ms"].append(cuda_ms(lambda: fir.polyphase_resample(x4, 3, 4, h4), 20))
-    print(json.dumps(out))
-
-
-def fir_times_of(root: str) -> dict:
-    """fir_times(root) in a process of its own (one port package a
-    process); its failure is this run's."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--fir-times", root],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        fail(f"--fir-times {root} exited {r.returncode}: {r.stderr.strip()[-2000:]}")
-    try:
-        return json.loads(r.stdout.strip().splitlines()[-1])
-    except (IndexError, ValueError):
-        fail(f"--fir-times {root} printed no JSON line: {r.stdout[-2000:]}")
 
 
 def burst_rows(n: int, edges_per_row, min_plateau: int, seed: int):
@@ -2454,35 +2384,6 @@ def multichip_phase(card: str) -> dict:
     return {label: leg["launches"][0] for label, leg in legs.items()}
 
 
-def bench_phase(card: str) -> None:
-    """Phase 33: bench_torch.py over BENCH_PHASES in a process of its own,
-    with GWT_BENCH_BUDGET_S=BENCH_BUDGET_S: exit code 0, a value above 0,
-    every one of the phases there (each checks its frames bit-exact and
-    its K1 and K2 launches); prints its result line."""
-    import torch
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py"),
-                        "--phases=" + ",".join(BENCH_PHASES)],
-                       cwd=HERE, env=dict(os.environ, GWT_BENCH_BUDGET_S=str(BENCH_BUDGET_S)),
-                       capture_output=True, text=True, timeout=BENCH_BUDGET_S + 60)
-    wall = time.perf_counter() - t0
-    check(p.returncode == 0, f"bench_torch.py exited {p.returncode}: {p.stdout[-2000:]}"
-                             f"{p.stderr[-3000:]}")
-    try:
-        line = p.stdout.strip().splitlines()[-1]
-        res = json.loads(line)
-    except (IndexError, ValueError):
-        fail(f"bench_torch.py printed no result line: {p.stdout[-2000:]}")
-    missing = [k for k in BENCH_PHASES if k not in res["detail"]["phases"]]
-    check(res["value"] > 0 and not missing,
-          f"bench_torch.py: value {res['value']}, phases missing {missing}, skipped "
-          f"{res['detail']['skipped']}")
-    print(f"bench_torch.py --phases={','.join(BENCH_PHASES)} ({wall:.1f} s wall; {card}): "
-          f"{res['value']:.1f} {res['unit']}; result line: {line}")
-
-
 def waterfall_phase(dev, card: str, reset, counts, held: dict) -> dict:
     """Phase 34: the PER waterfall on the card. The port's TX makes the
     bursts on the CPU (``waterfall_inputs``); ``rx.decode_aligned`` decodes
@@ -2668,8 +2569,8 @@ def graph_pool_mib(cache) -> str:
     return f"{mib:.1f} MiB"
 
 
-def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records, astreams,
-                parent: str | None) -> dict:
+def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
+                astreams) -> dict:
     """Phase 36: the local executors' CUDA graphs (parallel/graphs.py)
     against the same executors run eagerly (``EagerGraphs``) on the card.
     Returns the launches of the graphs' replays by run."""
@@ -2846,16 +2747,6 @@ def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
           f"{[[round(t[0], 4), round(t[1], 4)] for t in times['eager']]}, graph "
           f"{[[round(t[0], 4), round(t[1], 4)] for t in times['graph']]}; adaptive frames/s "
           f"{json.dumps({k: {kk: round(vv, 1) for kk, vv in v.items()} for k, v in fps.items()})}")
-
-    if parent:
-        # tools/step_ab.py over the parent checkout and this tree, in turns
-        tool = os.path.join(HERE, "tools", "step_ab.py")
-        for root in (parent, HERE, HERE, parent):
-            r = subprocess.run([sys.executable, tool, root], capture_output=True, text=True,
-                               timeout=300)
-            check(r.returncode == 0, f"step_ab {root}: {r.stderr[-2000:]}")
-            print(f"  step_ab {'parent' if root == parent else 'this tree'}: "
-                  f"{r.stdout.strip().splitlines()[-1]}")
     return replay_launches
 
 
@@ -3301,16 +3192,7 @@ def main() -> None:
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch + CUDA port.")
-    ap.add_argument("--parent", help="another checkout's root: time its K3 and K4 beside "
-                                     "this tree's in phase 17, and its device_step "
-                                     "(tools/step_ab.py) in phase 36, in turns")
-    ap.add_argument("--fir-times", metavar="ROOT",
-                    help="only time the K3 and K4 of the checkout at ROOT")
-    args = ap.parse_args()
-    if args.fir_times:
-        fir_times(os.path.abspath(args.fir_times))
-        return
-    parent = os.path.abspath(args.parent) if args.parent else None
+    ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -3874,16 +3756,13 @@ def main() -> None:
     # -- 32. the multi-card dry run, one NCCL rank a card ---------------------
     multichip_launches = multichip_phase(card)
 
-    # -- 33. the bench, bench_torch.py ----------------------------------------
-    bench_phase(card)
-
     # -- 34-35. the PER waterfall and the Mode-2 soak --------------------------
     waterfall_launches = waterfall_phase(dev, card, reset, counts, held)
     soak_launches = soak_phase(dev, card, reset, counts, held)
 
     # -- 36. the local executors' CUDA graphs ----------------------------------
     graph_launches = graph_phase(dev, card, reset, counts, stream, plan, cfg, check_records,
-                                 astreams, parent)
+                                 astreams)
     del astreams
 
     # -- 37. the serving programs' CUDA graphs ---------------------------------
@@ -3964,15 +3843,6 @@ def main() -> None:
           f"polyphase_resample 3/4 on {tuple(k4_x.shape)} -> {n_out4}: {k4_ms:.4f} ms "
           f"({k4_b / k4_ms:.0%} of its {k4_b:.4f} ms bound), plain {k4_plain:.3f} ms, conv1d "
           f"{k4_lib:.4f} ms (CUDA events; {card})")
-    if parent:
-        # the parent checkout's K3 and K4 beside this one's, in turns
-        for root in (parent, HERE, HERE, parent):
-            r = fir_times_of(root)
-            f, fd, rs = (min(r[k]) for k in ("fir_ms", "fir_device_taps_ms", "resample_ms"))
-            print(f"  {'parent' if root == parent else 'this tree'} ({root}): fir_filter "
-                  f"{f:.4f} ms ({k3_b / f:.0%} of bound; taps as a CUDA tensor {fd:.4f} ms), "
-                  f"polyphase_resample {rs:.4f} ms ({k4_b / rs:.0%} of bound) (best of 3 x 20, "
-                  f"CUDA events; {card})")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

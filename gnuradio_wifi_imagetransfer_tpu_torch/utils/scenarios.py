@@ -1,8 +1,7 @@
 """The scenarios that the port's on-card runs and their CPU twins share.
 
-``chip_smoke.py``, ``multichip_torch.py``, ``tools/step_ab.py`` and the
-tests build their traffic from here, so that each scenario has one
-definition:
+``chip_smoke.py``, ``multichip_torch.py`` and the tests build their
+traffic from here, so that each scenario has one definition:
 
     the bench shapes     ``bench.py``'s device_step shape (BLOCK,
                          TIME_BLOCKS, CHANNELS, MAX_FRAMES), its adaptive

@@ -181,8 +181,8 @@ def _repo_modules():
 
 
 def test_no_file_loads_the_smoke_script():
-    """bench_torch.py, tools/step_ab.py, multichip_torch.py and the tests
-    read the package, never chip_smoke.py, which every slice edits. Only
+    """multichip_torch.py and the tests read the package, never
+    chip_smoke.py, which every slice edits. Only
     tests/test_torch_port.py's JAX-free import check imports it, in a
     process of its own from a string of code, which the scan does not
     parse; that the check still names it is held here too."""
@@ -193,8 +193,8 @@ def test_no_file_loads_the_smoke_script():
             found[str(path.relative_to(ROOT))] = hits
     assert not found, found
     assert "import chip_smoke," in (ROOT / "tests" / "test_torch_port.py").read_text()
-    for name in ("bench_torch.py", "tools/step_ab.py", "multichip_torch.py",
-                 "tests/test_torch_waterfall.py", "tests/test_torch_soak.py"):
+    for name in ("multichip_torch.py", "tests/test_torch_waterfall.py",
+                 "tests/test_torch_soak.py"):
         assert (ROOT / name).exists()
 
 

@@ -61,7 +61,7 @@ NAME_MAP = {
 # Each root script of the JAX side -> its twin.
 SCRIPTS = {
     "__graft_entry__.py": "chip_smoke.py",
-    "bench.py": "bench_torch.py",
+    "bench.py": "benchmark/run.py",
     "demo.py": "demo_torch.py",
     "make_weights.py": "make_weights_torch.py",
     "scaling_report.py": "scaling_report_torch.py",
