@@ -7,9 +7,11 @@ share the scaffolding of ``_StreamExecutorBase``. In local mode
   * ``run`` pads and wire-formats the whole (channels, n) stream once,
     HALO_LEFT zeros in front and zeros behind out to the last step's
     extent plus ``_resident_right_pad()``, and ships it to the device,
-    where it stays resident. On a CUDA device each channel is quantized
-    into one reused page-locked buffer and its copy is queued at once, so
-    it crosses while the next channel is quantized;
+    where it stays resident. On a CUDA device the stream is quantized
+    into one reused page-locked buffer, long rows in segments on the
+    process's staging pool (utils/xfer.py ``WirePool``), and each part's
+    copy is queued as soon as it is written, so it crosses while the next
+    parts are quantized;
   * each step cuts ``time_shards`` overlapping extended blocks (HALO_LEFT
     + block + halo_right samples) per channel out of the resident stream
     on the device, decodes the wire format and runs sync over every block
@@ -115,11 +117,13 @@ from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.device import resolve
 from gnuradio_wifi_imagetransfer_tpu_torch.utils.xfer import (
     WIRE_DTYPES,
+    WIRE_MIN_SEGMENT,
     WIRE_TORCH_DTYPES,
     from_wire,
     quantize_wire,
     quantize_wire_into,
     to_riq,
+    wire_pool,
 )
 
 HALO_LEFT = 256
@@ -243,6 +247,10 @@ class _StreamExecutorBase:
             warnings.warn("wire quantizer: the native one is unavailable, numpy runs (no native "
                           "library: g++ is missing or its build failed)", RuntimeWarning,
                           stacklevel=2)
+        # the staging pool's threads start now, on this thread's cores (a
+        # pool first started inside ``run`` would share the driving thread's)
+        self._wire_pool = (wire_pool() if self.device.type == "cuda" and self._native_wire
+                           else None)
         if mesh is not None and self.frontend is not None:
             # front-end mesh mode cuts extended input-rate windows on the
             # host; a general ratio raises here (local mode only)
@@ -290,25 +298,48 @@ class _StreamExecutorBase:
     def _pad_wire(self, x: np.ndarray, dst: torch.Tensor | None = None) -> np.ndarray:
         """(C, n) complex stream -> (C, Np, 2) zero-padded wire tensor:
         HALO_LEFT zeros in front, zeros behind out to the last step's full
-        extent plus the right pad. Quantizes per channel straight into the
-        wire buffer (``_wire_buffer``), zeroing each row's head and tail,
-        so a shorter stream leaves no earlier one's samples behind. With
-        ``dst``, the (C, Np, 2) device tensor, each row's copy from the
+        extent plus the right pad. Quantizes straight into the wire buffer
+        (``_wire_buffer``), zeroing each row's head and tail, so a shorter
+        stream leaves no earlier one's samples behind. With
+        ``dst``, the (C, Np, 2) device tensor, each part's copy from the
         page-locked buffer is queued on the current stream as soon as the
-        row is written."""
+        part is written.
+
+        Where the executor has the staging pool (CUDA with the native
+        quantizer) and the rows are at least ``WIRE_MIN_SEGMENT`` samples
+        long, the pool quantizes each row in segments and each segment is a
+        part (the first reaching back over the row's head, the last on over
+        its tail); otherwise this thread quantizes row after row and each
+        row is a part. The Tracer's ``wire_split`` counts the segments
+        quantized on the pool and their samples (0 on the inline path)."""
         c, n = x.shape
         fmt = self.cfg.wire_format
-        out = self._wire_buffer((c, self.padded_out_len(n), 2))
+        np_len = self.padded_out_len(n)
+        out = self._wire_buffer((c, np_len, 2))
         if not self._native_wire:
             self.tracer.add("wire_fallback", 0.0)
-        for ch in range(c):
-            out[ch, :HALO_LEFT] = 0
-            quantize_wire_into(to_riq(x[ch]), fmt, out[ch, HALO_LEFT: HALO_LEFT + n])
-            out[ch, HALO_LEFT + n:] = 0
+
+        def written(ch: int, lo: int, hi: int) -> None:
             if dst is not None:
-                dst[ch].copy_(self._wire_host[ch], non_blocking=True)
-        if dst is not None:
-            self._wire_copied.record(torch.cuda.current_stream(dst.device))
+                a = 0 if lo == 0 else HALO_LEFT + lo
+                b = np_len if hi == n else HALO_LEFT + hi
+                dst[ch, a:b].copy_(self._wire_host[ch, a:b], non_blocking=True)
+
+        out[:, :HALO_LEFT] = 0
+        out[:, HALO_LEFT + n:] = 0
+        split = 0
+        try:
+            if self._wire_pool is not None and n >= WIRE_MIN_SEGMENT:
+                split = self._wire_pool.quantize_rows(x, fmt, out[:, HALO_LEFT: HALO_LEFT + n],
+                                                      written, WIRE_MIN_SEGMENT)
+            else:
+                for ch in range(c):
+                    quantize_wire_into(to_riq(x[ch]), fmt, out[ch, HALO_LEFT: HALO_LEFT + n])
+                    written(ch, 0, n)
+        finally:
+            if dst is not None:
+                self._wire_copied.record(torch.cuda.current_stream(dst.device))
+        self.tracer.count("wire_split", samples=c * n if split else 0, calls=split)
         return out
 
     def padded_out_len(self, n_out: int) -> int:

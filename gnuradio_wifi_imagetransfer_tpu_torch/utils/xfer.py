@@ -7,9 +7,16 @@ The full scales are the JAX package's (utils/xfer.py:41,56).
 ``quantize_wire_into`` writes ``quantize_wire``'s bytes into a buffer the
 caller gives: in one pass of the native library (runtime/native.py) where
 it loads, by a copy of ``quantize_wire``'s result where it does not.
+``WirePool`` runs it on threads of its own over segments of a stream's
+rows; ``wire_pool()`` is the process's pool, which the CUDA executors
+stage through (parallel/executor.py ``_pad_wire``).
 """
 
 from __future__ import annotations
+
+import os
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -87,6 +94,107 @@ def quantize_wire_into(riq: np.ndarray, wire_format: str, out: np.ndarray) -> No
         native._quantize_wire(riq, wire_format, out)
     else:
         np.copyto(out, quantize_wire(riq, wire_format))
+
+
+# The staging pool's size and its smallest segment, from a table taken on
+# an H100 host (8 cores, the benchmark's six "rest" cores; PERF.md §6): a
+# (4, 4 194 304) stream to sc16 took 21-25 ms on one thread and 4.9-8.0 ms
+# on six, the best of 1-6; a segment of 2**19 samples takes one thread
+# about 0.27 ms, more than the 0.2 ms a parked thread takes to wake and
+# answer, so no shorter segment leaves the calling thread.
+WIRE_WORKERS = 6
+WIRE_MIN_SEGMENT = 1 << 19
+
+
+class _Segment:
+    """One segment of a row: quantized on a worker, waited for and its
+    error re-raised on the thread that handed it out."""
+
+    __slots__ = ("src", "fmt", "out", "done", "error")
+
+    def __init__(self, src: np.ndarray, fmt: str, out: np.ndarray):
+        self.src, self.fmt, self.out = src, fmt, out
+        self.done = threading.Event()
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            quantize_wire_into(to_riq(self.src), self.fmt, self.out)
+        except BaseException as e:      # handed to the waiting thread
+            self.error = e
+        finally:
+            self.done.set()
+
+
+class WirePool:
+    """Threads that quantize a stream's rows in segments. The threads start
+    in the constructor and so run on the cores of the thread that builds
+    the pool; the native quantizer releases the GIL, so they quantize in
+    parallel. ``quantize_rows`` hands out every segment of every row at
+    once and reports each segment back on the calling thread, in order, as
+    it completes."""
+
+    def __init__(self, workers: int):
+        self._tasks: queue.SimpleQueue = queue.SimpleQueue()
+        self.threads = [threading.Thread(target=self._work, name=f"wire-quantize-{i}",
+                                         daemon=True) for i in range(workers)]
+        for t in self.threads:
+            t.start()
+
+    def _work(self) -> None:
+        while (task := self._tasks.get()) is not None:
+            task.run()
+
+    def close(self) -> None:
+        for _ in self.threads:
+            self._tasks.put(None)
+        for t in self.threads:
+            t.join()
+
+    def quantize_rows(self, x: np.ndarray, wire_format: str, out: np.ndarray,
+                      on_part=None, min_segment: int = WIRE_MIN_SEGMENT) -> int:
+        """``quantize_wire(to_riq(x[ch]), wire_format)`` into ``out[ch]`` for
+        each row of the (C, n) complex stream ``x``; ``out`` is (C, n, 2)
+        with C-contiguous rows. Each row is cut into as many segments as
+        there are threads, none shorter than ``min_segment`` samples (one
+        segment a row where n is below twice that). ``on_part(ch, lo, hi)``
+        runs on the calling thread for each finished segment, row after row.
+        A worker's exception is raised here once every segment has ended, so
+        no worker writes into ``out`` after the return. Returns the number
+        of segments."""
+        c, n = x.shape
+        parts = max(1, min(len(self.threads), n // min_segment))
+        cuts = [n * k // parts for k in range(parts + 1)]
+        segs = [(ch, lo, hi, _Segment(x[ch, lo:hi], wire_format, out[ch, lo:hi]))
+                for ch in range(c) for lo, hi in zip(cuts, cuts[1:])]
+        for *_, seg in segs:
+            self._tasks.put(seg)
+        try:
+            for ch, lo, hi, seg in segs:
+                seg.done.wait()
+                if seg.error is not None:
+                    raise seg.error
+                if on_part is not None:
+                    on_part(ch, lo, hi)
+        finally:
+            for *_, seg in segs:
+                seg.done.wait()
+        return len(segs)
+
+
+_pool: WirePool | None = None
+_pool_lock = threading.Lock()
+
+
+def wire_pool() -> WirePool:
+    """The process's staging pool, started by the first caller (on that
+    thread's cores) with ``WIRE_WORKERS`` threads, or fewer where the
+    process may run on fewer cores."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = WirePool(min(WIRE_WORKERS, len(os.sched_getaffinity(0))))
+        return _pool
 
 
 def from_wire(x: torch.Tensor) -> torch.Tensor:
