@@ -532,6 +532,21 @@ def identical_records(got, want, label: str) -> None:
               f"{label}: record {g} differs from {w}")
 
 
+def stage_b_buckets(recs, span: int, max_psdu: int) -> tuple[int, int]:
+    """(groups, buckets) an adaptive run's stage B dispatched, from its
+    records (every candidate gets one): a group a (super-block, rate,
+    length class), a bucket a chunk of at most ROW_SIZES[-1] of its rows."""
+    from gnuradio_wifi_imagetransfer_tpu_torch.parallel import executor as pexec
+
+    sizes: dict = {}
+    for r in recs:
+        key = (r.global_start // span, r.rate_idx, pexec.length_class(r.rate_idx, r.length,
+                                                                      max_psdu))
+        sizes[key] = sizes.get(key, 0) + 1
+    chunk = pexec.ROW_SIZES[-1]
+    return len(sizes), sum(-(-n // chunk) for n in sizes.values())
+
+
 def adaptive_phases(dev, card: str, reset, counts) -> dict:
     """Phases 12-15: the SIGNAL-steered path at the bench's adaptive shape,
     through the 3/4 front-end, against the CPU path, and with the trackers.
@@ -584,14 +599,14 @@ def adaptive_phases(dev, card: str, reset, counts) -> dict:
         check(not missing, f"{label}: frames {missing[:10]} (of {len(psdus)}) not recovered "
                            f"at their rates")
         steps = len(range(0, aex.effective_len(x.shape[1]), span))
-        # every candidate gets a record; a step dispatches one bucket a
-        # (rate, length) among its candidates
-        buckets = len({(r.global_start // span, r.rate_idx, r.length) for r in recs})
+        # every candidate gets a record; a step dispatches a bucket a
+        # (rate, length class) among its candidates, in chunks of rows
+        groups, buckets = stage_b_buckets(recs, span, aex.phy.max_psdu_bytes)
         check(launches["sync_detect"] == steps and launches["viterbi_decode"] == steps
               and launches["sync_stats"] == 0 and launches["viterbi_decode_many"] == buckets
-              and buckets == n_buckets and all(launches[k] == v for k, v in also),
-              f"{label}: launches {launches} for {steps} steps and {buckets} buckets "
-              f"(expected {n_buckets})")
+              and groups == n_buckets and all(launches[k] == v for k, v in also),
+              f"{label}: launches {launches} for {steps} steps and {buckets} buckets of "
+              f"{groups} (rate, class) groups (expected {n_buckets} groups)")
         merge_held(held, hold_recorded(calls, label))
         return recs, launches, dt, calls
 
@@ -2679,7 +2694,7 @@ def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
         aex_e = eager(AdaptiveStreamExecutor(exec_cfg=acfg, device=dev))
         want = aex_e.run(x)
         steps = len(range(0, aex.effective_len(x.shape[1]), span))
-        buckets = len({(r.global_start // span, r.rate_idx, r.length) for r in want})
+        buckets = stage_b_buckets(want, span, aex.phy.max_psdu_bytes)[1]
         got = through_graphs(aex, x, label, want, steps, buckets)
         check({(int(m), tuple(f)) for m, f in zip(mcs_seq, psdus)}
               <= {(r.rate_idx, tuple(r.psdu)) for r in got if r.parity_ok},
@@ -2699,9 +2714,9 @@ def graph_phase(dev, card: str, reset, counts, stream, plan, cfg, check_records,
         longest = max(keys, key=lambda k: k[6][1])
         fps[label] = {k: float(np.median([r[0] for r in v])) for k, v in rates.items()}
         print(f"graphs, {label} ({len(psdus)} frames in {tuple(x.shape)} sc8): "
-              f"{aex.graphs.captured} graphs captured ({len(keys)} stage-B buckets, keys "
-              f"(MCS, length, padded rows) {sorted((k[1], k[2], k[6][0]) for k in keys)}); "
-              f"the longest key (MCS {longest[1]}, {longest[2]} bytes, {longest[6][0]} rows) "
+              f"{aex.graphs.captured} graphs captured ({len(keys)} stage-B keys "
+              f"(MCS, class symbols, padded rows) {sorted((k[1], k[2], k[6][0]) for k in keys)}); "
+              f"the longest key (MCS {longest[1]}, {longest[2]} symbols, {longest[6][0]} rows) "
               f"warm-up {aex.graphs.stats[longest][0]:.1f} ms, capture "
               f"{aex.graphs.stats[longest][1]:.1f} ms; records bit for bit the eager run's; "
               f"memory_reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB, the graphs' "

@@ -32,6 +32,10 @@
 //   shared memory). 16 lanes a frame was 3 % faster on the H100 at 422
 //   steps but takes trellises of 9 600 steps at most against 14 400
 //   (PERF.md), so 8 stays.
+// - A terminated segment may give each frame its own trellis length (a
+//   stage-B bucket holds frames of one length class): the warp's chain is
+//   its longest frame's, not the segment's padded n, and each frame traces
+//   back from state 0 at its own last step.
 // - The trellis is a butterfly (params.conv_tables(): prev_state[ns][k] =
 //   2 (ns mod 32) + k, prev_bit[ns][k] = ns / 32; gwt_viterbi_check_tables
 //   checks the port's tables against it and the generators). Lane l of a
@@ -60,6 +64,7 @@ constexpr int kStates = 64;
 constexpr int kMaxSegments = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int LPF = 8;               // lanes a frame
+constexpr int kDescWords = 6;        // int64 words a segment's descriptor
 
 // the 802.11a generators (phy/params.py G0, G1); out_a is the G0 bit
 constexpr unsigned kG0 = 0133, kG1 = 0171;
@@ -79,6 +84,7 @@ __host__ __device__ constexpr int code_of(unsigned reg) {
 struct Segment {
   const float2* llr;     // (batch, n) LLR pairs
   uint8_t* bits;         // (batch, n)
+  const int32_t* lens;   // (batch,) each frame's own trellis steps, or null: n each
   int64_t batch;
   int n;
   int terminated;
@@ -136,6 +142,18 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   uint8_t* dec = smem + static_cast<size_t>(frames) * n * 8;    // n x (frames x LPF)
   const int dstride = frames * LPF;
 
+  // A frame's own trellis is its first len steps (1 <= len <= n). The warp
+  // runs the forward recursion to the longest of its frames, and each frame
+  // traces back from state 0 at its own last step: the decisions of steps
+  // below len depend on nothing after them, so a frame decodes bit for bit
+  // as it does alone on a trellis of len steps.
+  int len = n;
+  if (sg.lens != nullptr && active) {
+    const int want = sg.lens[f0 + g];
+    len = want < 1 ? 1 : (want > n ? n : want);
+  }
+  const int n_run = sg.lens == nullptr ? n : __reduce_max_sync(kFull, active ? len : 0);
+
   stage_llrs(lv, sg.llr + f0 * n, nf * n);
   for (int i = l; i < kStates; i += LPF) pm[g][0][pm_at(i)] = i == 0 ? 0.f : -1e30f;
   // The lane's edges: j < H is new state H l + j, j >= H is 32 + H l + j - H,
@@ -169,7 +187,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   // reader subtracts it (the same __fsub_rn), so the max's shuffles run
   // while the metrics go through shared memory.
   float m_prev = 0.f;                              // x - 0 = x: step 0 as is
-  for (int t = 0; t < n; ++t) {
+  for (int t = 0; t < n_run; ++t) {
     const float* cur = pm[g][t & 1];
     float* nxt = pm[g][(t + 1) & 1];
     float q[SPL];                                  // metrics of states SPL l ..
@@ -209,7 +227,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   int state = 0;
   if (!sg.terminated) {           // first state holding the largest metric
     // (before the last max is subtracted: x - m == 0 exactly when x == m)
-    const float* fin = pm[g][n & 1];
+    const float* fin = pm[g][n_run & 1];
     float q[SPL];
 #pragma unroll
     for (int j = 0; j < SPL; ++j) q[j] = fin[pm_at((j < H ? 0 : 32) + H * l + (j % H))];
@@ -229,12 +247,16 @@ __global__ void __launch_bounds__(32) viterbi_kernel(SegmentTable tab) {
   // traceback: a step's decision bytes of the frame are read as whole
   // 64-bit words (they do not depend on the state, so the loads run
   // ahead); the state then picks its bit by shifts alone
+  if (active && len < n) {        // past its own trellis a frame's bits are 0
+    uint8_t* out = sg.bits + (f0 + g) * n;
+    for (int t = len + l; t < n; t += LPF) out[t] = 0;
+  }
   if (active && l == 0) {
     uint8_t* out = sg.bits + (f0 + g) * n;
     const uint64_t* dg = reinterpret_cast<const uint64_t*>(dec + g * LPF);
     const int wstride = dstride / 8;
 #pragma unroll 8
-    for (int t = n - 1; t >= 0; --t) {
+    for (int t = len - 1; t >= 0; --t) {
       const int byte = (state & 31) / H;                  // lane of the state
       const uint64_t w = dg[t * wstride];
       const int k = static_cast<int>(
@@ -251,12 +273,16 @@ int launch(const int64_t* desc, int count, int64_t max_smem, cudaStream_t stream
   int blocks = 0, smem = 0;
   for (int i = 0; i < count; ++i) {
     Segment& s = tab.seg[tab.count];
-    s.llr = reinterpret_cast<const float2*>(desc[5 * i]);
-    s.bits = reinterpret_cast<uint8_t*>(desc[5 * i + 1]);
-    s.batch = desc[5 * i + 2];
-    s.n = static_cast<int>(desc[5 * i + 3]);
-    s.terminated = static_cast<int>(desc[5 * i + 4]);
+    const int64_t* d = desc + kDescWords * i;
+    s.llr = reinterpret_cast<const float2*>(d[0]);
+    s.bits = reinterpret_cast<uint8_t*>(d[1]);
+    s.batch = d[2];
+    s.n = static_cast<int>(d[3]);
+    s.terminated = static_cast<int>(d[4]);
+    s.lens = reinterpret_cast<const int32_t*>(d[5]);
     if (s.batch <= 0 || s.n <= 0) continue;
+    // a frame shorter than the segment ends in state 0 at its own last step
+    if (s.lens != nullptr && !s.terminated) return cudaErrorInvalidValue;
     s.frames = G;
     while (s.frames > 1 && shared_bytes(s.frames, s.n) > max_smem) s.frames /= 2;
     if (shared_bytes(s.frames, s.n) > max_smem) return cudaErrorInvalidValue;
@@ -308,10 +334,13 @@ extern "C" int64_t gwt_viterbi_max_steps() {
 
 extern "C" int gwt_viterbi_max_segments() { return kMaxSegments; }
 
-// desc: count x (llr pointer, bits pointer, batch, n, terminated) as
-// int64, host memory; llr (batch, n) float2 pairs (llr_a, llr_b) per
-// trellis step and bits (batch, n) uint8 are device pointers, contiguous.
-// One launch. Returns cudaGetLastError().
+// desc: count x (llr pointer, bits pointer, batch, n, terminated, lens
+// pointer) as int64, host memory; llr (batch, n) float2 pairs (llr_a,
+// llr_b) per trellis step and bits (batch, n) uint8 are device pointers,
+// contiguous; lens is 0 or a device pointer to (batch,) int32 trellis
+// lengths, one a frame (a terminated segment only): frame f decodes its
+// first lens[f] steps, from state 0 at its last one, and its bits past them
+// are 0. One launch. Returns cudaGetLastError().
 extern "C" int gwt_viterbi_decode_segments(const int64_t* desc, int count, void* stream) {
   if (count < 0 || count > kMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
   return launch(desc, count, kMaxDynamicSmem, static_cast<cudaStream_t>(stream));

@@ -37,34 +37,80 @@ def _np_tables():
         t["prev_out0"].astype(np.float32), t["prev_out1"].astype(np.float32)))
 
 
-def viterbi_decode_plain(llr: torch.Tensor, terminated: bool = True) -> torch.Tensor:
-    """(B, n, 2) float32 LLR pairs -> (B, n) uint8 decoded bits."""
+@functools.cache
+def _butterfly() -> bool:
+    """Whether the port's trellis is the butterfly the plain loop's views
+    assume (the kernel checks the same, gwt_viterbi_check_tables):
+    prev_state[ns][k] = 2 (ns mod 32) + k and prev_bit[ns][k] = ns / 32."""
+    prev_state, prev_bit = _np_tables()[:2]
+    ns = np.arange(params.N_STATES)[:, None]
+    return bool(np.array_equal(prev_state, 2 * (ns % 32) + np.arange(2))
+                and np.array_equal(prev_bit, np.broadcast_to(ns // 32, prev_bit.shape)))
+
+
+_CHUNK = 256                # trellis steps whose gains (and predecessors) are formed at once
+
+
+def viterbi_decode_plain(llr: torch.Tensor, terminated: bool = True,
+                         lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n, 2) float32 LLR pairs -> (B, n) uint8 decoded bits.
+
+    ``lengths`` (B,) (terminated only): frame b decodes its first
+    lengths[b] steps (clipped to 1..n) as a trellis of its own, traced back
+    from state 0 at its last step, and its bits past them are 0. The
+    recursion runs over all n steps (reading no length back to the host,
+    as a captured function must not); past a frame's own length its
+    decisions into state 0 are set to the edge from state 0, so the
+    traceback waits there.
+
+    The operations are the JAX path's: per step gain = llr_a * out0 +
+    llr_b * out1 (formed for a chunk of steps at once), cand = pm[prev] +
+    gain, the decision, the select and the max subtracted; the butterfly
+    (``_butterfly``) lets pm[prev] be a view."""
+    if not _butterfly():
+        raise ValueError("viterbi_decode_plain: the trellis tables are not the butterfly")
     dev = llr.device
-    prev_state, prev_bit, out0, out1 = (
-        device_table(_np_table, i, device=dev, dtype=torch.long if i == 0 else None)
-        for i in range(4))
+    out0, out1 = (device_table(_np_table, i, device=dev) for i in (2, 3))
     b, n, _ = llr.shape
+    if lengths is not None and not terminated:
+        raise ValueError("viterbi_decode_plain: lengths take a terminated trellis")
     pm = torch.full((b, params.N_STATES), -1e30, dtype=torch.float32, device=dev)
     pm[:, 0] = 0.0                                           # start in state 0
-    dec = torch.empty((n, b, params.N_STATES), dtype=torch.bool, device=dev)
-    for i in range(n):
-        # gain[b, ns, k] = llr_a * out0[ns, k] + llr_b * out1[ns, k]
-        gain = llr[:, i, 0, None, None] * out0 + llr[:, i, 1, None, None] * out1
-        cand = pm[:, prev_state] + gain                      # (B, 64, 2)
-        d = cand[..., 1] > cand[..., 0]                      # ties -> k = 0
-        new = torch.where(d, cand[..., 1], cand[..., 0])
-        pm = new - new.amax(dim=-1, keepdim=True)            # drift control
-        dec[i] = d
+    chunks = []
+    for lo in range(0, n, _CHUNK):
+        v = llr[:, lo: lo + _CHUNK]
+        # gain[b, t, ns, k] = llr_a * out0[ns, k] + llr_b * out1[ns, k]
+        gains = (v[..., 0, None, None] * out0 + v[..., 1, None, None] * out1).view(
+            b, v.shape[1], 2, 32, 2)                         # ns = 32 h + j
+        ds = []
+        for t in range(v.shape[1]):
+            c0, c1 = (pm.view(b, 1, 32, 2) + gains[:, t]).unbind(-1)   # pm[2 (ns mod 32) + k]
+            d = c1 > c0                                      # ties -> k = 0
+            new = torch.where(d, c1, c0)
+            pm = (new - new.amax(dim=(1, 2), keepdim=True)).view(b, params.N_STATES)
+            ds.append(d)                                     # (the max: drift control)
+        chunks.append(torch.stack(ds).view(v.shape[1], b, params.N_STATES))
+    dec = (torch.cat(chunks) if chunks
+           else torch.empty((0, b, params.N_STATES), dtype=torch.bool, device=dev))
     if terminated:
-        state = torch.zeros(b, dtype=torch.long, device=dev)
+        state = torch.zeros((b, 1), dtype=torch.long, device=dev)
     else:
-        state = torch.argmax(pm, dim=-1)                     # first max
+        state = torch.argmax(pm, dim=-1, keepdim=True)       # first max
+    if lengths is not None:
+        own = lengths.to(device=dev, dtype=torch.long).clamp(1, max(n, 1))
+        dec[:, :, 0] &= torch.arange(n, device=dev)[:, None] < own
+    # prev_state[s][k] = 2 (s mod 32) + k, prev_bit[s][k] = s / 32: a chunk's
+    # predecessor table, then one gather a step
+    low = (torch.arange(params.N_STATES, device=dev) & 31) << 1
     bits = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    bi = torch.arange(b, device=dev)
-    for i in range(n - 1, -1, -1):
-        k = dec[i, bi, state].long()
-        bits[:, i] = prev_bit[state, k].to(torch.uint8)
-        state = prev_state[state, k]
+    for hi in range(n, 0, -_CHUNK):
+        lo = max(0, hi - _CHUNK)
+        prev = low + dec[lo:hi].long()                       # (steps, B, 64)
+        states = []
+        for t in range(hi - lo - 1, -1, -1):
+            states.append(state)
+            state = prev[t].gather(1, state)
+        bits[:, lo:hi] = torch.cat(states[::-1], dim=1) >> 5
     return bits
 
 
@@ -113,34 +159,50 @@ def viterbi_decode(llr: torch.Tensor, terminated: bool = True) -> torch.Tensor:
 viterbi_decode.launches = 0
 
 
-def viterbi_decode_many_plain(llrs, terminated) -> list[torch.Tensor]:
-    """``viterbi_decode_plain`` on each (B_i, n_i, 2) segment."""
-    return [viterbi_decode_plain(v, t) for v, t in zip(llrs, terminated, strict=True)]
+def viterbi_decode_many_plain(llrs, terminated, lengths=None) -> list[torch.Tensor]:
+    """``viterbi_decode_plain`` on each (B_i, n_i, 2) segment, with its
+    ``lengths`` entry (None or (B_i,))."""
+    lengths = [None] * len(llrs) if lengths is None else lengths
+    return [viterbi_decode_plain(v, t, n)
+            for v, t, n in zip(llrs, terminated, lengths, strict=True)]
 
 
-def viterbi_decode_many(llrs, terminated) -> list[torch.Tensor]:
+def viterbi_decode_many(llrs, terminated, lengths=None) -> list[torch.Tensor]:
     """Viterbi-decode several segments of (B_i, n_i, 2) float32 LLR pairs
-    with their ``terminated`` flags -> [(B_i, n_i) uint8 bits].
+    with their ``terminated`` flags -> [(B_i, n_i) uint8 bits]. ``lengths``,
+    if given, holds for each segment None or the (B_i,) trellis lengths of
+    its frames (a terminated segment only; ``viterbi_decode_plain``).
 
     CUDA tensors (on one device) go through the kernel in ONE launch for
     all segments; CPU tensors through ``viterbi_decode_many_plain``."""
     llrs, terminated = list(llrs), [bool(t) for t in terminated]
-    if len(llrs) != len(terminated):
+    lengths = [None] * len(llrs) if lengths is None else list(lengths)
+    if not len(llrs) == len(terminated) == len(lengths):
         raise ValueError(f"viterbi_decode_many: {len(llrs)} segments, "
-                         f"{len(terminated)} terminated flags")
+                         f"{len(terminated)} terminated flags, {len(lengths)} lengths")
     if all(v.device.type == "cpu" for v in llrs):
-        return viterbi_decode_many_plain(llrs, terminated)
-    bits, launched = _decode_segments(llrs, terminated, "viterbi_decode_many")
+        return viterbi_decode_many_plain(llrs, terminated, lengths)
+    bits, launched = _decode_segments(llrs, terminated, "viterbi_decode_many", lengths)
     if launched:
-        build.count_launch(viterbi_decode_many, (llrs, terminated))
+        build.count_launch(viterbi_decode_many, (llrs, terminated, lengths))
     return bits
 
 
-def _decode_segments(llrs, terminated, name: str):
+def _decode_segments(llrs, terminated, name: str, lengths=None):
     """The one launch behind both wrappers. Returns (bits, whether it
     launched)."""
+    lengths = [None] * len(llrs) if lengths is None else lengths
     for v in llrs:
         _check(v, name)
+    for v, t, n in zip(llrs, terminated, lengths):
+        if n is None:
+            continue
+        if not t:
+            raise ValueError(f"{name}: lengths take a terminated trellis")
+        if n.device != v.device or n.dtype != torch.int32 or n.shape != v.shape[:1] \
+                or not n.is_contiguous():
+            raise ValueError(f"{name}: lengths must be ({v.shape[0]},) contiguous int32 on "
+                             f"{v.device}, got {tuple(n.shape)} {n.dtype} on {n.device}")
     dev = llrs[0].device
     if any(v.device != dev for v in llrs):
         raise ValueError(f"{name}: segments on different devices")
@@ -154,9 +216,10 @@ def _decode_segments(llrs, terminated, name: str):
     if not any(sizes):
         return bits, False
     _check_tables()
-    desc = (ctypes.c_int64 * (5 * len(llrs)))(*(
-        x for v, b, t in zip(llrs, bits, terminated)
-        for x in (v.data_ptr(), b.data_ptr(), v.shape[0], v.shape[1], int(t))))
+    desc = (ctypes.c_int64 * (6 * len(llrs)))(*(
+        x for v, b, t, n in zip(llrs, bits, terminated, lengths)
+        for x in (v.data_ptr(), b.data_ptr(), v.shape[0], v.shape[1], int(t),
+                  0 if n is None else n.data_ptr())))
     err = lib.gwt_viterbi_decode_segments(desc, len(llrs),
                                           torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)

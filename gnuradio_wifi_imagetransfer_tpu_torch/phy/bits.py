@@ -177,3 +177,16 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     b = bits.reshape(bits.shape[:-1] + (-1, 8)).to(torch.int32)
     weights = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
     return (b * weights).sum(dim=-1).to(torch.uint8)
+
+
+def psdu_bytes(descrambled: torch.Tensor, psdu_len: int,
+               lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """The PSDU bytes of descrambled DATA bits (..., n) (SERVICE first):
+    (..., psdu_len) uint8. With ``lengths`` (...,), each frame's own
+    PSDU length (at most psdu_len), the bytes past a frame's own are 0."""
+    start = params.N_SERVICE_BITS
+    out = bits_to_bytes(descrambled[..., start: start + 8 * psdu_len])
+    if lengths is None:
+        return out
+    keep = torch.arange(psdu_len, device=out.device) < lengths[..., None]
+    return torch.where(keep, out, 0).to(torch.uint8)

@@ -94,25 +94,36 @@ class RxResult:
 def decode_aligned(samples: torch.Tensor, plan: TxPlan, start: int | torch.Tensor = 0,
                    algo: ChannelEstimator = ChannelEstimator.LS,
                    lms_mu: float = _GAINS.lms_mu, sta_alpha: float = _GAINS.sta_alpha,
-                   sta_beta: float = _GAINS.sta_beta) -> RxResult:
+                   sta_beta: float = _GAINS.sta_beta,
+                   lengths: torch.Tensor | None = None) -> RxResult:
     """Decode frames whose preambles start at ``start`` in ``samples``.
 
     The MCS/length come from ``plan`` (static shapes); the SIGNAL field is
     decoded and returned for validation but does not steer shapes (the
     adaptive executor buckets frames by their decoded SIGNAL before it
-    calls this).
+    calls this). With ``lengths`` (...,), each frame's own PSDU length
+    (at most ``plan.psdu_len``, so at most ``plan.n_sym`` symbols), a batch
+    holds frames of different lengths: each decodes as it would alone
+    with ``TxPlan(plan.mcs, length)``, its PSDU in the first ``length``
+    bytes (the rest 0) and its own symbols first in ``eq_symbols``.
     """
     ltf1, ltf2, spectra = frame_spectra(samples, plan.n_sym, start)
     return decode_spectra(ltf1, ltf2, spectra, plan, algo=algo, lms_mu=lms_mu,
-                          sta_alpha=sta_alpha, sta_beta=sta_beta)
+                          sta_alpha=sta_alpha, sta_beta=sta_beta, lengths=lengths)
 
 
 def decode_spectra(ltf1: torch.Tensor, ltf2: torch.Tensor, spectra: torch.Tensor,
                    plan: TxPlan, algo: ChannelEstimator = ChannelEstimator.LS,
                    lms_mu: float = _GAINS.lms_mu, sta_alpha: float = _GAINS.sta_alpha,
-                   sta_beta: float = _GAINS.sta_beta) -> RxResult:
+                   sta_beta: float = _GAINS.sta_beta,
+                   lengths: torch.Tensor | None = None) -> RxResult:
     """Decode from demodulated spectra: LTF spectra (..., 64) and
-    SIGNAL+data spectra (..., 1+n_sym, 64)."""
+    SIGNAL+data spectra (..., 1+n_sym, 64); ``lengths`` as in
+    ``decode_aligned``. Every step up to a frame's own tail is causal (the
+    equalizers and trackers symbol by symbol, demapping, deinterleaving
+    and depuncturing position by position, the Viterbi recursion step by
+    step), so the symbols after a shorter frame's own change nothing of
+    it."""
     h0 = equalizer.ls_estimate(ltf1, ltf2)
     eq, csi = equalizer.equalize(spectra, h0, symbol_index0=0, algo=algo, mcs=plan.mcs,
                                  lms_mu=lms_mu, sta_alpha=sta_alpha, sta_beta=sta_beta)
@@ -126,12 +137,14 @@ def decode_spectra(ltf1: torch.Tensor, ltf2: torch.Tensor, spectra: torch.Tensor
     # The trellis terminates (state 0) right after the 6 zero tail bits;
     # scrambled PAD bits continue past it, so decode only through the tail.
     # SIGNAL's 24-step trellis and the payload's are decoded together.
+    # With per-frame lengths each frame's trellis ends at its own tail.
     n_info = params.N_SERVICE_BITS + 8 * plan.psdu_len + params.N_TAIL_BITS
+    own = (None if lengths is None
+           else params.N_SERVICE_BITS + 8 * lengths + params.N_TAIL_BITS)
     sig_raw, decoded = viterbi.decode_many(
         [signal_field.signal_llrs(eq[..., 0, :]), mother[..., : 2 * n_info]],
-        [24, n_info], [True, True])
+        [24, n_info], [True, True], None if own is None else [None, own])
     sig = signal_field.parse(sig_raw)
     descrambled = bitops.descramble(decoded)
-    psdu_bits = descrambled[..., params.N_SERVICE_BITS: params.N_SERVICE_BITS + 8 * plan.psdu_len]
-    return RxResult(psdu=bitops.bits_to_bytes(psdu_bits), sig=sig,
+    return RxResult(psdu=bitops.psdu_bytes(descrambled, plan.psdu_len, lengths), sig=sig,
                     eq_symbols=data_eq, csi=data_csi)

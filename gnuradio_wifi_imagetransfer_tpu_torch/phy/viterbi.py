@@ -33,11 +33,17 @@ def decode(llrs: torch.Tensor, n_bits: int, terminated: bool = True) -> torch.Te
     return bits.reshape(batch_shape + (n_bits,))
 
 
-def decode_many(llrs, n_bits, terminated) -> list[torch.Tensor]:
+def decode_many(llrs, n_bits, terminated, lengths=None) -> list[torch.Tensor]:
     """``decode`` on several LLR tensors at once (one kernel launch on the
     card): llrs[i] (..., 2*n_bits[i]) with flag terminated[i] ->
-    [(..., n_bits[i]) uint8]."""
+    [(..., n_bits[i]) uint8]. ``lengths[i]``, None or a (...,) tensor of
+    trellis lengths, gives each frame of a terminated segment a trellis of
+    its own, ending in state 0 after its own length (its bits past it are
+    0)."""
     segs = [v.reshape(-1, nb, 2).to(torch.float32).contiguous()
             for v, nb in zip(llrs, n_bits, strict=True)]
-    bits = viterbi_acs.viterbi_decode_many(segs, terminated)
+    if lengths is not None:
+        lengths = [None if n is None else n.reshape(-1).to(torch.int32).contiguous()
+                   for n in lengths]
+    bits = viterbi_acs.viterbi_decode_many(segs, terminated, lengths)
     return [b.reshape(v.shape[:-1] + (nb,)) for b, v, nb in zip(bits, llrs, n_bits)]

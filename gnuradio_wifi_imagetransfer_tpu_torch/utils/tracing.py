@@ -151,16 +151,27 @@ def default_tracer() -> Tracer:
     return _default
 
 
-def evm_snr_db(eq_symbols: torch.Tensor, mcs: int) -> torch.Tensor:
+def evm_snr_db(eq_symbols: torch.Tensor, mcs: int,
+               n_sym: torch.Tensor | None = None) -> torch.Tensor:
     """Per-frame SNR estimate from equalized data symbols (..., S, 48):
     P_signal / P_error against the nearest constellation point, in dB,
-    reduced over the trailing (symbol, carrier) axes -> (...,) float32."""
+    reduced over the trailing (symbol, carrier) axes -> (...,) float32.
+    With ``n_sym`` (...,), a frame's own data symbols (at most S), each
+    frame's SNR is over its first n_sym symbols only."""
     points = device_table(params.constellation, int(params.MCS_N_BPSC[mcs]),
                           device=eq_symbols.device)
     idx = torch.argmin((eq_symbols[..., None] - points).abs() ** 2, dim=-1)
     nearest = points[idx]
-    err = ((eq_symbols - nearest).abs() ** 2).mean(dim=(-2, -1))
-    sig = (nearest.abs() ** 2).mean(dim=(-2, -1))
+    err = (eq_symbols - nearest).abs() ** 2
+    sig = nearest.abs() ** 2
+    if n_sym is None:
+        err, sig = err.mean(dim=(-2, -1)), sig.mean(dim=(-2, -1))
+    else:
+        own = (torch.arange(eq_symbols.shape[-2], device=eq_symbols.device)
+               < n_sym[..., None])[..., None]
+        count = (n_sym * eq_symbols.shape[-1]).to(err.dtype)
+        err = torch.where(own, err, 0).sum(dim=(-2, -1)) / count
+        sig = torch.where(own, sig, 0).sum(dim=(-2, -1)) / count
     return (10.0 * torch.log10(torch.clamp(sig, min=1e-12)
                                / torch.clamp(err, min=1e-12))).to(torch.float32)
 

@@ -30,6 +30,7 @@ from gnuradio_wifi_imagetransfer_tpu_torch.parallel import (
     AdaptiveStreamExecutor,
     make_mesh,
 )
+from gnuradio_wifi_imagetransfer_tpu_torch.parallel import executor as pexec
 from gnuradio_wifi_imagetransfer_tpu_torch.parallel.executor import HALO_LEFT, StageAOutputs
 from gnuradio_wifi_imagetransfer_tpu_torch.phy import rx, sync, tx
 from gnuradio_wifi_imagetransfer_tpu_torch.utils import tracing
@@ -205,9 +206,10 @@ def test_frontend_matches_jax(fe):
 
 
 def test_tracer_stages_and_resident_pad():
-    """A run reports its stages (one fetch of all four buckets at the
-    end), and the resident stream carries the longest frame's window of
-    zeros past its end, so a stage-B gather never leaves it."""
+    """A run reports its stages (one fetch of all three buckets at the
+    end: MCS 3's 50 and 120 bytes share a length class), and the resident
+    stream carries the longest frame's window of zeros past its end, so a
+    stage-B gather never leaves it."""
     specs = _specs()
     x = _mixed_stream(4 * 4096, specs)[None]
     tracer = tracing.Tracer()
@@ -219,7 +221,8 @@ def test_tracer_stages_and_resident_pad():
     assert {"layout", "transfer", "device_step", "collect", "stage_b",
             "stage_b_fetch"} <= set(stages)
     assert stages["stage_b"].frames == len(recs) == 4
-    assert stages["stage_b_fetch"].calls == 1 and stages["stage_b_fetch"].frames == 4
+    assert stages["stage_b_fetch"].calls == 1 and stages["stage_b_fetch"].frames == 3
+    assert (stages["stage_b_slots"].calls, stages["stage_b_slots"].frames) == (3, 4)
     assert ex._resident_right_pad() == sync.window_len(tx.tx_plan(0, 800).n_sym) == 22160
     assert ex.padded_out_len(4 * 4096) == 256 + 4 * 4096 + 22160
     assert ex.halo_right == 560
@@ -367,17 +370,30 @@ def _plain_collect_and_bucket(ex, offset, h, n, seen):
         seen.add(key)
         cands.append((key[0], key[1], float(cfo[ci, ti, ki]), int(frame_start[ci, ti, ki]),
                       int(rate_idx[ci, ti, ki]), int(length[ci, ti, ki])))
-    buckets = rx.signal_buckets([c[4] for c in cands], [c[5] for c in cands])
-    return int(mask.sum()), cands, [[cands[i] for i in pos] for pos in buckets.values()]
+    # stage B's buckets: (rate, length class) in order of first appearance,
+    # longest first in each (candidate order among equal lengths), cut into
+    # chunks of ROW_SIZES[-1] rows
+    classes = pexec.length_classes(ex.phy.max_psdu_bytes)
+    groups: dict = {}
+    for c in cands:
+        n_sym = tx.tx_plan(c[4], c[5]).n_sym
+        groups.setdefault((c[4], min(k for k in classes[c[4]] if k >= n_sym)), []).append(c)
+    chunk = pexec.ROW_SIZES[-1]
+    buckets = []
+    for members in groups.values():
+        members = sorted(members, key=lambda c: -c[5])
+        buckets += [members[i: i + chunk] for i in range(0, len(members), chunk)]
+    return int(mask.sum()), cands, buckets
 
 
 def _plain_rows(bucket, n_pad):
-    """A bucket's (b_pad, 3) float64 scalars as the loop wrote them one row
-    at a time (local mode; mesh mode without a front-end: tau 0)."""
-    rows = np.zeros((1 << (len(bucket) - 1).bit_length(), 3))
-    for i, (ch, gs, cfo, fs, _, _) in enumerate(bucket):
-        rows[i] = (fs, cfo, ch * n_pad + gs - sync.MARGIN + HALO_LEFT) if n_pad else (
-            fs, cfo, np.float32(0.0))
+    """A bucket's (b_pad, 4) float64 scalars as the loop wrote them one row
+    at a time (local mode; mesh mode without a front-end: tau 0), the rows
+    padded to the smallest of ROW_SIZES that holds them."""
+    rows = np.zeros((min(r for r in pexec.ROW_SIZES if r >= len(bucket)), 4))
+    for i, (ch, gs, cfo, fs, _, ln) in enumerate(bucket):
+        rows[i] = (fs, cfo, ch * n_pad + gs - sync.MARGIN + HALO_LEFT, ln) if n_pad else (
+            fs, cfo, np.float32(0.0), ln)
     return rows
 
 
@@ -434,6 +450,7 @@ def test_column_path_matches_the_per_row_loop(monkeypatch, mode):
 
     def spy(self, stream, bucket):
         wlen = sync.window_len(tx.tx_plan(int(bucket.rate_idx[0]), int(bucket.length[0])).n_sym)
+        assert len(bucket) <= pexec.ROW_SIZES[-1]
         dispatched.append((bucket, self._bucket_inputs(stream, bucket, wlen)[1]))
         return bucket, None, None
 

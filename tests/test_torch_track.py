@@ -389,11 +389,13 @@ def test_executor_sta_buckets_launch_k5_once_on_card(dev, monkeypatch):
 
     monkeypatch.setattr(equalizer, "_track_plain", watched)
     k5.track_eq.launches = 0
-    got = AdaptiveStreamExecutor(device=dev, **kw).run(x)
+    ex = AdaptiveStreamExecutor(device=dev, **kw)
+    got = ex.run(x)
     torch.cuda.synchronize()
     assert not any(loop_on_card)
-    # 2 steps (stage A: one launch each) and one launch a (rate, length) bucket
-    assert k5.track_eq.launches == 2 + len({(r.rate_idx, r.length) for r in got})
+    # 2 steps (stage A: one launch each) and one launch a (rate, length
+    # class) bucket
+    assert k5.track_eq.launches == 2 + ex.tracer.report()["stage_b_slots"].calls
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g.channel, g.global_start, g.rate_idx, g.length, g.parity_ok) == (
